@@ -1,0 +1,50 @@
+"""Percentile normalization (csbdeep.utils.normalize semantics).
+
+Counterpart of `cell_image_analysis_tpu/ops/percentile.py`:
+`normalize_percentile` takes exact order statistics (`torch.kthvalue`) at
+the ranks numpy's linear-interpolation percentile uses, computed in python
+float64 (`percentile_ranks`), and lerps them in float32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def percentile_ranks(n: int, qs: tuple) -> list:
+    """(k_lo, k_hi, frac) triples of numpy's linear-interpolation percentile
+    for a length-n array, one per q (float64 index arithmetic)."""
+    out = []
+    for q in qs:
+        idx = q / 100.0 * (n - 1)
+        k_lo = int(np.floor(idx))
+        k_hi = int(np.ceil(idx))
+        out.append((k_lo, k_hi, np.float32(idx - k_lo)))
+    return out
+
+
+def percentile_select(x: torch.Tensor, qs: tuple) -> torch.Tensor:
+    """numpy `percentile(x_b, qs)` of each leading-dim slice of x (B, ...)
+    -> (B, len(qs)) float32, from exact order statistics."""
+    flat = x.reshape(x.shape[0], -1).float()
+    out = []
+    for k_lo, k_hi, frac in percentile_ranks(flat.shape[1], qs):
+        vlo = torch.kthvalue(flat, k_lo + 1, dim=1).values
+        vhi = vlo if k_hi == k_lo else torch.kthvalue(flat, k_hi + 1, dim=1).values
+        f = torch.tensor(frac, dtype=torch.float32, device=x.device)
+        out.append(vlo * (1.0 - f) + vhi * f)
+    return torch.stack(out, dim=1)
+
+
+def normalize_percentile(x: torch.Tensor, pmin: float = 3.0, pmax: float = 99.8,
+                         eps: float = 1e-20) -> torch.Tensor:
+    """(x - p_min) / (p_max - p_min + eps) per frame of x (B, H, W) or (H, W),
+    float32, no clipping."""
+    single = x.dim() == 2
+    xb = (x[None] if single else x).float()
+    lohi = percentile_select(xb, (float(pmin), float(pmax)))
+    lo = lohi[:, 0].reshape(-1, 1, 1)
+    hi = lohi[:, 1].reshape(-1, 1, 1)
+    out = (xb - lo) / (hi - lo + torch.tensor(eps, dtype=torch.float32, device=x.device))
+    return out[0] if single else out
