@@ -9,8 +9,10 @@ The stages that the JAX package runs through Pallas kernels go through
 hand-written CUDA kernels (`csrc/`, built by `ops/cuda/_build.py`):
 
 - every 3x3 conv of the StarDist U-Net -> `csrc/winograd_conv3x3.cu`;
-- the run-moment segment sums of stage A -> `csrc/segment_sum.cu`;
-- the per-cell CLAHE core -> `csrc/clahe_core.cu`.
+- the run- and pixel-moment segment sums of stage A -> `csrc/segment_sum.cu`;
+- the per-cell CLAHE core -> `csrc/clahe_core.cu`;
+- the connected components of the threshold backend's label maps ->
+  `csrc/cc_min_labels.cu`.
 
 Each kernel's wrapper launches it for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; the CPU tests hold the plain versions

@@ -4,8 +4,10 @@ Counterpart of `cell_image_analysis_tpu/models/stardist.py` on the path
 the screening bench runs: percentile normalization, reflect padding to a
 multiple of 2**depth, the U-Net with the late dist head, top-K candidates
 (lower index first on ties, as `lax.top_k`), the in-frame local-maximum
-count behind `cand_overflow`, sparse-pair star NMS and the tiled
-rasterizer.  Batched over frames: (B, H, W) raw channels in.
+count behind `cand_overflow`, sparse-pair star NMS, and the tiled
+rasterizer — or the scatter rasterizer for `raster_mode="scatter"` and
+for frames whose side is not a multiple of `raster_tile`, as JAX routes
+it.  Batched over frames: (B, H, W) raw channels in.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ from cell_image_analysis_tpu.config import SegConfig
 from cell_image_analysis_tpu_torch.ops import gather_rows
 from cell_image_analysis_tpu_torch.ops.nms import star_nms
 from cell_image_analysis_tpu_torch.ops.percentile import normalize_percentile
-from cell_image_analysis_tpu_torch.ops.rasterize import rasterize_polygons_tiled
+from cell_image_analysis_tpu_torch.ops.rasterize import (
+    rasterize_polygons,
+    rasterize_polygons_tiled,
+)
 
 
 class InstanceDetails(NamedTuple):
@@ -43,15 +48,7 @@ def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegCon
     """seg_channels (B, H, W) raw -> (labels (B, H, W) int32, InstanceDetails).
 
     `model` is a `models.unet.StarDistUNet` on the channels' device."""
-    if cfg.raster_mode != "tiled":
-        raise NotImplementedError(
-            "predict_instances: only raster_mode='tiled' is ported; the scatter "
-            "rasterizer (the exact overflow twin) is not")
     B, h, w = seg_channels.shape
-    if h % cfg.raster_tile or w % cfg.raster_tile:
-        raise NotImplementedError(
-            f"predict_instances: frame {h}x{w} is not a multiple of raster_tile "
-            f"{cfg.raster_tile}; the scatter rasterizer it needs is not ported")
     x = normalize_percentile(seg_channels, pmin=cfg.norm_pmin, pmax=cfg.norm_pmax)
     x = _pad_to_multiple(x, 2 ** cfg.unet_depth)
     gy, gx = cfg.grid
@@ -79,9 +76,15 @@ def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegCon
     keep, nms_ovf = star_nms(centers, cand_dists, top_p, valid,
                              nms_thresh=cfg.nms_thresh, metric=cfg.nms_metric,
                              max_pairs=min(cfg.nms_max_pairs, K * K))
-    labels, r_ovf = rasterize_polygons_tiled(
-        centers, cand_dists, top_p, keep, h, w, tile=cfg.raster_tile,
-        m_cap=cfg.raster_m_cap, raster_cap=(cfg.raster_cap or None))
+    tile = cfg.raster_tile
+    if cfg.raster_mode == "tiled" and h % tile == 0 and w % tile == 0:
+        labels, r_ovf = rasterize_polygons_tiled(
+            centers, cand_dists, top_p, keep, h, w, tile=tile,
+            m_cap=cfg.raster_m_cap, raster_cap=(cfg.raster_cap or None))
+    else:
+        labels = rasterize_polygons(centers, cand_dists, top_p, keep, h, w,
+                                    patch=cfg.raster_patch, raster_cap=(cfg.raster_cap or None))
+        r_ovf = torch.zeros(B, dtype=torch.bool, device=labels.device)
     return labels, InstanceDetails(points=centers, dists=cand_dists, probs=top_p, keep=keep,
                                    raster_overflow=r_ovf, nms_overflow=nms_ovf,
                                    cand_overflow=cand_ovf)

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "cia_winograd_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cia_segment_sum_i64": [_P, _P, _P, _L, _I, _I, _P],
     "cia_clahe_core": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
+    "cia_cc_min_labels": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -1,10 +1,18 @@
-"""Stage A of screening: label maps -> QC'd, capacity-bounded cell crops.
+"""Stage A of screening: segmentations -> QC'd, capacity-bounded cell crops.
 
-Counterpart of `cell_image_analysis_tpu/ops/extract.py`
-(`extract_candidates_from_labels_runs`, `_candidates_from_props`):
-run-length regionprops -> geometric QC -> the first `cell_capacity`
-passing labels in ascending order -> (crop_capacity)^2 crop gather ->
-bbox-rectangle mean/std intensity QC -> survivors repacked to the front.
+Counterpart of `cell_image_analysis_tpu/ops/extract.py`: regionprops ->
+geometric QC -> the first `cell_capacity` passing labels in ascending
+order -> (crop_capacity)^2 crop gather -> bbox-rectangle mean/std
+intensity QC -> survivors repacked to the front (`_candidates_from_props`).
+The regionprops come from one of three routes:
+
+- `extract_candidates`: label maps through the pixel regionprops (the
+  exact route of both overflow fallbacks);
+- `extract_candidates_from_labels_runs`: label maps through the run-length
+  regionprops (the StarDist backend's fast route);
+- `extract_candidates_from_mask`: boolean masks through the run-length
+  connected components (the threshold backend's fast route).
+
 The static capacities and their truncation are kept exactly: they decide
 which cells survive.  Batched over frames.
 """
@@ -15,9 +23,9 @@ from typing import NamedTuple
 
 import torch
 
-from cell_image_analysis_tpu_torch.ops import gather_rows
-from cell_image_analysis_tpu_torch.ops.regionprops import qc_mask
-from cell_image_analysis_tpu_torch.ops.runs import regionprops_from_labels
+from cell_image_analysis_tpu_torch.ops import gather_rows, nonzero_static
+from cell_image_analysis_tpu_torch.ops.regionprops import qc_mask, regionprops
+from cell_image_analysis_tpu_torch.ops.runs import regionprops_from_labels, regionprops_from_mask
 
 
 class Candidates(NamedTuple):
@@ -33,21 +41,6 @@ class Candidates(NamedTuple):
     mean_intensity: torch.Tensor
     std_intensity: torch.Tensor
     n_valid: torch.Tensor         # (B,) int32
-
-
-def nonzero_static(mask: torch.Tensor, size: int, fill_value: int) -> torch.Tensor:
-    """`jnp.nonzero(mask_b, size=size, fill_value=fill)[0]` per row of a
-    (B, N) mask: ascending indices of the True entries, truncated or padded
-    to `size`."""
-    B, N = mask.shape
-    idx = torch.arange(N, device=mask.device).expand(B, N)
-    keys = torch.where(mask, idx, N).sort(dim=1).values
-    if size <= N:
-        keys = keys[:, :size]
-    else:
-        keys = torch.cat([keys, torch.full((B, size - N), N, device=mask.device,
-                                           dtype=keys.dtype)], dim=1)
-    return torch.where(keys < N, keys, fill_value)
 
 
 def _candidates_from_props(props, green: torch.Tensor, label_capacity: int,
@@ -115,6 +108,42 @@ def extract_candidates_from_labels_runs(
     """Stage A from label maps (B, H, W) and raw green channels (B, H, W).
     Returns (Candidates, run-table overflow (B,))."""
     props, overflow = regionprops_from_labels(labels, capacity=label_capacity, rcap=rcap)
+    cand = _candidates_from_props(
+        props, green, label_capacity=label_capacity, cell_capacity=cell_capacity,
+        crop_capacity=crop_capacity, border_margin=border_margin, min_area=min_area,
+        max_area=max_area, max_eccentricity=max_eccentricity,
+        min_mean_intensity=min_mean_intensity, min_std_intensity=min_std_intensity)
+    return cand, overflow
+
+
+def extract_candidates(
+    labels: torch.Tensor, green: torch.Tensor, label_capacity: int = 1024,
+    cell_capacity: int = 512, crop_capacity: int = 192, border_margin: int = 10,
+    min_area: int = 200, max_area: int = 8000, max_eccentricity: float = 0.95,
+    min_mean_intensity: float = 0.5, min_std_intensity: float = 0.1,
+    fg_fraction: float = 0.25,
+) -> Candidates:
+    """Stage A from label maps (B, H, W) through the pixel regionprops."""
+    props = regionprops(labels, capacity=label_capacity, fg_fraction=fg_fraction)
+    return _candidates_from_props(
+        props, green, label_capacity=label_capacity, cell_capacity=cell_capacity,
+        crop_capacity=crop_capacity, border_margin=border_margin, min_area=min_area,
+        max_area=max_area, max_eccentricity=max_eccentricity,
+        min_mean_intensity=min_mean_intensity, min_std_intensity=min_std_intensity)
+
+
+def extract_candidates_from_mask(
+    mask: torch.Tensor, green: torch.Tensor, label_capacity: int = 1024,
+    cell_capacity: int = 512, crop_capacity: int = 192, border_margin: int = 10,
+    min_area: int = 200, max_area: int = 8000, max_eccentricity: float = 0.95,
+    min_mean_intensity: float = 0.5, min_std_intensity: float = 0.1, rcap: int = 32,
+    connectivity: int = 1,
+):
+    """Stage A from boolean masks (B, H, W) through the run-length
+    connected components.  Returns (Candidates, run-table overflow (B,));
+    where the flag is set the caller re-runs the exact label route."""
+    props, overflow = regionprops_from_mask(mask, capacity=label_capacity, rcap=rcap,
+                                            connectivity=connectivity)
     cand = _candidates_from_props(
         props, green, label_capacity=label_capacity, cell_capacity=cell_capacity,
         crop_capacity=crop_capacity, border_margin=border_margin, min_area=min_area,

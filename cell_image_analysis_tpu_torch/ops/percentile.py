@@ -1,9 +1,11 @@
 """Percentile normalization (csbdeep.utils.normalize semantics).
 
 Counterpart of `cell_image_analysis_tpu/ops/percentile.py`:
-`normalize_percentile` takes exact order statistics (`torch.kthvalue`) at
-the ranks numpy's linear-interpolation percentile uses, computed in python
-float64 (`percentile_ranks`), and lerps them in float32.
+`normalize_percentile` takes exact order statistics (`kth_smallest`, on
+`torch.kthvalue`) at the ranks numpy's linear-interpolation percentile
+uses, computed in python float64 (`percentile_ranks`), and lerps them in
+float32.  JAX selects them with a sort-free bisection; the values are the
+same.
 """
 
 from __future__ import annotations
@@ -24,16 +26,24 @@ def percentile_ranks(n: int, qs: tuple) -> list:
     return out
 
 
+def kth_smallest(x: torch.Tensor, ks: tuple) -> torch.Tensor:
+    """The k-th smallest elements (0-based ranks `ks`) of each leading-dim
+    slice of x (B, ...) -> (B, len(ks)) float32; a rank repeated is
+    selected once."""
+    flat = x.reshape(x.shape[0], -1).float()
+    vals = {k: torch.kthvalue(flat, k + 1, dim=1).values for k in dict.fromkeys(ks)}
+    return torch.stack([vals[k] for k in ks], dim=1)
+
+
 def percentile_select(x: torch.Tensor, qs: tuple) -> torch.Tensor:
     """numpy `percentile(x_b, qs)` of each leading-dim slice of x (B, ...)
     -> (B, len(qs)) float32, from exact order statistics."""
-    flat = x.reshape(x.shape[0], -1).float()
+    rk = percentile_ranks(x[0].numel(), qs)
+    v = kth_smallest(x, tuple(k for r in rk for k in r[:2]))
     out = []
-    for k_lo, k_hi, frac in percentile_ranks(flat.shape[1], qs):
-        vlo = torch.kthvalue(flat, k_lo + 1, dim=1).values
-        vhi = vlo if k_hi == k_lo else torch.kthvalue(flat, k_hi + 1, dim=1).values
+    for i, (_, _, frac) in enumerate(rk):
         f = torch.tensor(frac, dtype=torch.float32, device=x.device)
-        out.append(vlo * (1.0 - f) + vhi * f)
+        out.append(v[:, 2 * i] * (1.0 - f) + v[:, 2 * i + 1] * f)
     return torch.stack(out, dim=1)
 
 

@@ -1,12 +1,21 @@
-"""Star-polygon rasterization to instance label maps, per 64x64 tile.
+"""Star-polygon rasterization to instance label maps.
 
-Counterpart of `cell_image_analysis_tpu/ops/rasterize.py`
-(`rasterize_polygons_tiled`): the kept polygons are compacted to the
-top-`raster_cap` by probability, labelled 1..n in descending probability,
-and each frame tile draws its top-`m_cap` overlapping polygons by packed
-priority key `prob_q << 16 | (0xFFFF - label)`; a pixel takes the largest
-key whose polygon contains it.  A tile with more than `m_cap` polygons sets
-the per-frame overflow flag.  Batched over a leading frame axis.
+Counterpart of `cell_image_analysis_tpu/ops/rasterize.py`: the kept
+polygons are compacted to the top-`raster_cap` by probability, labelled
+1..n in descending probability, and a pixel takes the largest packed
+priority key `prob_q << 16 | (0xFFFF - label)` among the polygons that
+contain it.  Two renderers:
+
+- `rasterize_polygons_tiled`: each 64x64 frame tile draws its top-`m_cap`
+  overlapping polygons; a tile with more than `m_cap` polygons sets the
+  per-frame overflow flag.  Polygons are not clipped.
+- `rasterize_polygons`: every polygon draws a `patch` x `patch` window
+  around its center into one scatter-max over the frame; no per-tile cap,
+  but a polygon wider than the patch is clipped to it.  The exact overflow
+  twin's renderer, and the one for frames whose side is not a multiple of
+  the tile.
+
+Batched over a leading frame axis.
 """
 
 from __future__ import annotations
@@ -91,3 +100,35 @@ def rasterize_polygons_tiled(centers, dists, probs, keep, height: int, width: in
     labels = torch.where(acc > 0, 0xFFFF - (acc & 0xFFFF), 0).int()
     labels = labels.reshape(B, Ty, Tx, tile, tile).permute(0, 1, 3, 2, 4)
     return labels.reshape(B, height, width), overflow
+
+
+def rasterize_polygons(centers, dists, probs, keep, height: int, width: int,
+                       patch: int = 160, raster_cap: int | None = None):
+    """centers (B, K, 2), dists (B, K, R), probs (B, K), keep (B, K) ->
+    labels (B, height, width) int32, by one scatter-max of every polygon's
+    patch pixels into a flat canvas with a scrap slot."""
+    centers, dists, keys, keep = _compact_and_key(centers, dists, probs, keep, raster_cap)
+    B, K = keys.shape
+    dev = keys.device
+    half = patch // 2
+    r0 = torch.round(centers[..., 0]).int() - half                       # (B, K)
+    c0 = torch.round(centers[..., 1]).int() - half
+    ar = torch.arange(patch, device=dev)
+    dy = ar.float()[:, None]
+    dx = ar.float()[None, :]
+    py = dy + r0.float()[..., None, None] - centers[..., 0, None, None]   # (B, K, p, p)
+    px = dx + c0.float()[..., None, None] - centers[..., 1, None, None]
+    rho = torch.sqrt(py * py + px * px)
+    theta = torch.atan2(py, px)
+    rb = radius_at(dists[..., None, None, :], theta)
+    gy = r0[..., None, None] + ar[:, None]
+    gx = c0[..., None, None] + ar[None, :]
+    ok = ((rho <= rb) & keep[..., None, None]
+          & (gy >= 0) & (gy < height) & (gx >= 0) & (gx < width))
+    flat = torch.where(ok, gy * width + gx, height * width).reshape(B, -1).long()
+    vals = torch.where(ok, keys[..., None, None], 0).reshape(B, -1)
+    canvas = torch.zeros((B, height * width + 1), dtype=torch.int32, device=dev)
+    canvas.scatter_reduce_(1, flat, vals.int(), reduce="amax")
+    canvas = canvas[:, :height * width]
+    labels = torch.where(canvas > 0, 0xFFFF - (canvas & 0xFFFF), 0).int()
+    return labels.reshape(B, height, width)

@@ -1,48 +1,66 @@
-"""Run-length regionprops of instance label maps.
+"""Run-length connected components and regionprops.
 
-Counterpart of `cell_image_analysis_tpu/ops/runs.py`
-(`regionprops_from_labels`, `_run_moments`): each row's runs of constant
-positive label go into a static `(H, rcap)` table (the `rcap` leftmost
-runs; more set the overflow flag), and area, bbox, centroid and
-eccentricity follow from closed-form per-run moments reduced per label.
+Counterpart of `cell_image_analysis_tpu/ops/runs.py`: each row's runs go
+into a static `(H, rcap)` table (the `rcap` leftmost runs; more set the
+per-frame overflow flag), and area, bbox, centroid and eccentricity follow
+from closed-form per-run moments reduced per region.
+
+- `regionprops_from_labels`: runs of constant positive label of instance
+  label maps (the StarDist backend's stage A);
+- `regionprops_from_mask`: runs of a boolean mask (`run_table`, top-k
+  form), joined into components by neighbour-min hooks over the runs of
+  adjacent rows (`cc_runs`) and numbered in scipy's raster order
+  (`_component_numbers`) — the threshold backend's stage A, which never
+  materializes a label map.
 
 The six moments are integers, so the port computes them in int64 and
 reduces them with `ops.segsum.segment_sums` (the CUDA segment-sum kernel on
 the GPU): exact in any summation order.  The bbox maxima are a plain
-`scatter_reduce`.  Batched over frames: label maps (B, H, W).
+`scatter_reduce`.  Batched over frames (B, H, W); the hook loop runs until
+no frame changes, which leaves frames that converged earlier as they were.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import NamedTuple
 
-from cell_image_analysis_tpu_torch.ops.regionprops import RegionProps
+import torch
+import torch.nn.functional as F
+
+from cell_image_analysis_tpu_torch.ops.regionprops import (
+    RegionProps,
+    bbox_anchors,
+    props_from_moments,
+    segment_bbox_max,
+)
 from cell_image_analysis_tpu_torch.ops.segsum import segment_sums
 
 _INF = 1 << 30
-_I32_MIN = -(1 << 31)
+_CHECK_EVERY = 4  # hook sweeps between two convergence checks (JAX's default)
+
+
+class RunTable(NamedTuple):
+    """Row runs of boolean masks, padded to `rcap` slots per row.  Unused
+    slots have start = W and end = 0."""
+
+    start: torch.Tensor     # (B, H, rcap) int32 first column
+    end: torch.Tensor       # (B, H, rcap) int32 one past the last column
+    overflow: torch.Tensor  # (B,) bool: some row had more than rcap runs
 
 
 def _moment_rows(seg, r, sf, ef, vf, capacity: int, h: int, w: int):
     """Per-slot bbox maxima and int64 run moments.  All inputs are (B, S)
-    over run slots; `seg` holds the 0-based label index per slot
+    over run slots; `seg` holds the 0-based region index per slot
     (capacity = dump).  Returns (flat segment ids (B*S,) int32 over
     B*(capacity+1) segments, moments (B*S, 6) int64, bbox maxima
     (B, capacity, 4))."""
     B = seg.shape[0]
     n_seg = capacity + 1
-    dev = seg.device
-    flat_seg = (seg.long() + n_seg * torch.arange(B, device=dev)[:, None]).reshape(-1)
-
-    # bbox: one 4-wide segment max (empty segments keep INT32_MIN, as JAX)
+    flat_seg = (seg.long() + n_seg * torch.arange(B, device=seg.device)[:, None]).reshape(-1)
     feats = torch.stack([r, ef - 1, -r, -torch.where(vf, sf, _INF)], dim=-1).reshape(-1, 4)
-    mx = torch.full((B * n_seg, 4), _I32_MIN, dtype=torch.int32, device=dev)
-    mx.scatter_reduce_(0, flat_seg[:, None].expand(-1, 4), feats.int(), reduce="amax")
-    mx = mx.reshape(B, n_seg, 4)[:, :capacity]
+    mx = segment_bbox_max(flat_seg, feats, B * n_seg).reshape(B, n_seg, 4)[:, :capacity]
 
-    zero = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    anchor_r = torch.cat([torch.clamp(-mx[..., 2], 0, h - 1), zero], dim=1)
-    anchor_c = torch.cat([torch.clamp(-mx[..., 3], 0, w - 1), zero], dim=1)
+    anchor_r, anchor_c = bbox_anchors(mx, h, w)
     ln = torch.where(vf, ef - sf, 0).long()
     dr = (r - torch.gather(anchor_r, 1, seg.long())).long()
     c0 = (sf - torch.gather(anchor_c, 1, seg.long())).long()
@@ -55,42 +73,17 @@ def _moment_rows(seg, r, sf, ef, vf, capacity: int, h: int, w: int):
 
 
 def _run_moments(seg, r, sf, ef, vf, capacity: int, h: int, w: int) -> RegionProps:
-    """Per-run moments -> per-label props (see `_moment_rows`)."""
+    """Per-run moments -> per-region props (see `_moment_rows`)."""
     B = seg.shape[0]
     n_seg = capacity + 1
     flat_seg, data, mx = _moment_rows(seg, r, sf, ef, vf, capacity, h, w)
-    mxr, mxc = mx[..., 0], mx[..., 1]
-    mnr_raw, mnc_raw = -mx[..., 2], -mx[..., 3]
     sums = segment_sums(flat_seg, data, B * n_seg)
-    sums = sums.reshape(B, n_seg, 6)[:, :capacity].float()
+    return props_from_moments(sums.reshape(B, n_seg, 6)[:, :capacity], mx, h, w)
 
-    area = sums[..., 0].int()
-    valid_lab = area > 0
-    areaf = torch.clamp(sums[..., 0], min=1.0)
-    er = sums[..., 1] / areaf
-    ec = sums[..., 2] / areaf
-    cy = torch.clamp(mnr_raw, 0, h - 1).float() + er
-    cx = torch.clamp(mnc_raw, 0, w - 1).float() + ec
-    mu20 = sums[..., 3] / areaf - er * er
-    mu02 = sums[..., 4] / areaf - ec * ec
-    mu11 = sums[..., 5] / areaf - er * ec
-    t = (mu20 + mu02) / 2.0
-    dd = torch.sqrt(((mu20 - mu02) / 2.0) ** 2 + mu11 ** 2)
-    l1, l2 = t + dd, t - dd
-    ecc = torch.where(l1 > 0, torch.sqrt(torch.clamp(
-        1.0 - l2 / torch.clamp(l1, min=1e-20), 0.0, 1.0)), 0.0)
-    zf = torch.zeros_like(cy)
-    return RegionProps(
-        area=area,
-        min_r=torch.where(valid_lab, mnr_raw, 0),
-        min_c=torch.where(valid_lab, mnc_raw, 0),
-        max_r=torch.where(valid_lab, mxr + 1, 0),
-        max_c=torch.where(valid_lab, mxc + 1, 0),
-        centroid_r=torch.where(valid_lab, cy, zf),
-        centroid_c=torch.where(valid_lab, cx, zf),
-        eccentricity=torch.where(valid_lab, ecc, zf),
-        valid=valid_lab,
-    )
+
+def _row_index(B: int, h: int, rcap: int, device) -> torch.Tensor:
+    r = torch.arange(h, dtype=torch.int32, device=device)[:, None].expand(h, rcap)
+    return r.reshape(1, -1).expand(B, -1)
 
 
 def _label_runs(labels: torch.Tensor, capacity: int, rcap: int):
@@ -98,8 +91,8 @@ def _label_runs(labels: torch.Tensor, capacity: int, rcap: int):
     row, start and end column, validity, and the per-frame overflow flag."""
     B, h, w = labels.shape
     lab = labels.int()
-    left = torch.nn.functional.pad(lab, (1, 0))[..., :-1]
-    right = torch.nn.functional.pad(lab, (0, 1))[..., 1:]
+    left = F.pad(lab, (1, 0))[..., :-1]
+    right = F.pad(lab, (0, 1))[..., 1:]
     is_start = (lab > 0) & (lab != left)
     is_end = (lab > 0) & (lab != right)
     overflow = torch.any(is_start.sum(dim=-1) > rcap, dim=-1)
@@ -117,9 +110,7 @@ def _label_runs(labels: torch.Tensor, capacity: int, rcap: int):
 
     vf = end > 0
     seg = torch.clamp(torch.where(vf, run_lab - 1, capacity), max=capacity)
-    r = torch.arange(h, dtype=torch.int32, device=lab.device)[:, None].expand(h, rcap)
-    r = r.reshape(1, -1).expand(B, -1)
-    return seg, r, start, end, vf, overflow
+    return seg, _row_index(B, h, rcap, lab.device), start, end, vf, overflow
 
 
 def run_moment_table(labels: torch.Tensor, capacity: int, rcap: int = 64):
@@ -137,3 +128,93 @@ def regionprops_from_labels(labels: torch.Tensor, capacity: int, rcap: int = 64)
     B, h, w = labels.shape
     seg, r, start, end, vf, overflow = _label_runs(labels, capacity, rcap)
     return _run_moments(seg, r, start, end, vf, capacity, h, w), overflow
+
+
+def run_table(mask: torch.Tensor, rcap: int = 64) -> RunTable:
+    """The padded row-run table of boolean masks (B, H, W): the start
+    (end) columns are the rcap largest keys W - c over the start (end)
+    flags, i.e. the leftmost runs in ascending order."""
+    B, h, w = mask.shape
+    m = mask.bool()
+    left = F.pad(m, (1, 0))[..., :-1]
+    right = F.pad(m, (0, 1))[..., 1:]
+    is_start, is_end = m & ~left, m & ~right
+    overflow = torch.any(is_start.sum(dim=-1) > rcap, dim=-1)
+    c = torch.arange(w, dtype=torch.int32, device=m.device)
+    vs = torch.topk(torch.where(is_start, w - c, 0), rcap, dim=-1).values
+    ve = torch.topk(torch.where(is_end, w - c, 0), rcap, dim=-1).values
+    return RunTable(start=torch.where(vs > 0, w - vs, w).int(),
+                    end=torch.where(ve > 0, w - ve + 1, 0).int(), overflow=overflow)
+
+
+def _shift_rows(x: torch.Tensor, off: int, fill) -> torch.Tensor:
+    """x (B, H, ...) with row r holding row r + off (off = +-1), `fill`
+    past the edge."""
+    pad = torch.full_like(x[:, :1], fill)
+    if off < 0:
+        return torch.cat([pad, x[:, :-1]], dim=1)
+    return torch.cat([x[:, 1:], pad], dim=1)
+
+
+def cc_runs(table: RunTable, connectivity: int = 1) -> torch.Tensor:
+    """Component-min run ids (r*rcap + j of each component's raster-first
+    run) via neighbour-min hooks between the runs of adjacent rows; INF on
+    unused slots.  (B, H, rcap) int32."""
+    start, end = table.start, table.end
+    B, h, rcap = start.shape
+    dev = start.device
+    valid = end > 0
+    own = (torch.arange(h, dtype=torch.int32, device=dev)[:, None] * rcap
+           + torch.arange(rcap, dtype=torch.int32, device=dev)[None, :])
+    p = torch.where(valid, own, _INF)
+    d = 1 if connectivity == 2 else 0
+    # interval overlap (touch at 8-connectivity), masked with the validity
+    # of both slots: at d = 1 the unused-slot sentinel (start W, end 0)
+    # would pass the test against a full-width run and relay labels
+    # across an empty row
+    ov = []
+    for off in (-1, 1):
+        s_n, e_n = _shift_rows(start, off, 1 << 20), _shift_rows(end, off, 0)
+        v_n = _shift_rows(valid, off, False)
+        ov.append((start[..., :, None] < e_n[..., None, :] + d)
+                  & (s_n[..., None, :] < end[..., :, None] + d)
+                  & valid[..., :, None] & v_n[..., None, :])
+    while True:
+        new = p
+        for _ in range(_CHECK_EVERY):
+            best = new
+            for off, ov_n in zip((-1, 1), ov):
+                p_n = _shift_rows(new, off, _INF)
+                best = torch.minimum(best, torch.where(ov_n, p_n[..., None, :], _INF).amin(-1))
+            new = best
+        if torch.equal(new, p):
+            return new
+        p = new
+
+
+def _component_numbers(parent: torch.Tensor, valid: torch.Tensor):
+    """1..K component numbers per run slot (0 unused), in raster order of
+    each component's first run — scipy.ndimage.label numbering — and the
+    count K per frame.  parent, valid: (B, H, rcap)."""
+    B, h, rcap = parent.shape
+    own = torch.arange(h * rcap, dtype=torch.int32, device=parent.device)
+    flatp = parent.reshape(B, -1)
+    v = valid.reshape(B, -1)
+    cnum = torch.cumsum(v & (flatp == own), dim=1)
+    comp = torch.where(v, torch.gather(cnum, 1, torch.clamp(flatp, max=h * rcap - 1).long()), 0)
+    return comp.reshape(B, h, rcap).int(), cnum[:, -1].int()
+
+
+def regionprops_from_mask(mask: torch.Tensor, capacity: int, rcap: int = 64,
+                          connectivity: int = 1):
+    """RegionProps of the connected components of boolean masks (B, H, W),
+    indexed by scipy component number - 1, and the (B,) run-table overflow
+    flag.  Never materializes a label map."""
+    B, h, w = mask.shape
+    table = run_table(mask, rcap=rcap)
+    valid = table.end > 0
+    comp, _ = _component_numbers(cc_runs(table, connectivity=connectivity), valid)
+    seg = torch.clamp(torch.where(comp > 0, comp - 1, capacity), max=capacity).reshape(B, -1)
+    props = _run_moments(seg, _row_index(B, h, rcap, mask.device), table.start.reshape(B, -1),
+                         table.end.reshape(B, -1), valid.reshape(B, -1), capacity, h, w)
+    return props, table.overflow

@@ -5,7 +5,9 @@ and `ops/pallas/winograd.py` (the fused kernel).  `winograd_conv3x3`
 launches `csrc/winograd_conv3x3.cu` for CUDA tensors and runs the plain
 version, `F.conv2d`, for CPU tensors.  Both compute in float32 (the package
 turns TF32 off), so the kernel differs from the plain version by the
-reassociation of Winograd F(2x2, 3x3) only.
+reassociation of Winograd F(2x2, 3x3) only.  The kernel tiles the output
+in 2x2 blocks; an odd side gets one zero row or column appended, which is
+what SAME padding reads there, and the extra output is cut off.
 """
 
 from __future__ import annotations
@@ -32,10 +34,8 @@ def winograd_conv3x3_plain(x: torch.Tensor, W: torch.Tensor,
 
 def winograd_conv3x3(x: torch.Tensor, W: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
-    """SAME 3x3 correlation + bias.  x (B, H, W, Ci) float32 with H, W even;
-    W (3, 3, Ci, Co) HWIO; bias (Co,) or None.  Returns (B, H, W, Co)."""
-    if x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"winograd_conv3x3: H and W must be even, got {tuple(x.shape)}")
+    """SAME 3x3 correlation + bias.  x (B, H, W, Ci) float32; W (3, 3, Ci,
+    Co) HWIO; bias (Co,) or None.  Returns (B, H, W, Co)."""
     if x.device.type == "cpu":
         return winograd_conv3x3_plain(x, W, bias)
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
@@ -44,4 +44,8 @@ def winograd_conv3x3(x: torch.Tensor, W: torch.Tensor,
     U = winograd_kernel_transform(W).reshape(16, ci, co)
     if bias is None:
         bias = torch.zeros(co, dtype=torch.float32, device=x.device)
+    h, w = x.shape[1:3]
+    if h % 2 or w % 2:
+        y = winograd_conv3x3_cuda(F.pad(x.float(), (0, 0, 0, w % 2, 0, h % 2)), U, bias.float())
+        return y[:, :h, :w].contiguous()
     return winograd_conv3x3_cuda(x.float(), U, bias.float())

@@ -11,14 +11,20 @@ Counterpart of `cell_image_analysis_tpu/pipeline/scoring.py`:
   chunk — returning the same `(scores, stats)` pair as the JAX
   `score_frames_fused_wait`.
 
-The JAX pipeline re-runs a batch through an exact twin (scatter
-rasterizer, K^2 NMS pairs, pixel regionprops) when a capacity flag fires.
-That twin is not ported yet, so here any such flag raises
-`CapacityOverflowError`.
+Stage A takes one of JAX `_stage_a_one`'s three routes, by the
+segment_fn's flags: boolean masks (`returns_mask`) through the run-length
+connected components, label maps with `runs_props` through the run-length
+regionprops, other label maps through the pixel regionprops.  When a
+capacity flag fires in any frame (a run table's `rcap`, or a flag the
+segment_fn returns with `returns_overflow`), the whole batch re-runs
+through `fallback_segment_fn`, the exact twin; without one the port warns
+as JAX does.  The port checks the flags before stage B, JAX after it: the
+result is the same.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -26,7 +32,11 @@ import torch
 
 from cell_image_analysis_tpu_torch.models.svm import SVMParams, decision_function
 from cell_image_analysis_tpu_torch.ops.clahe import NS_CAP, NS_CAP_16PX, clahe_cells
-from cell_image_analysis_tpu_torch.ops.extract import extract_candidates_from_labels_runs
+from cell_image_analysis_tpu_torch.ops.extract import (
+    extract_candidates,
+    extract_candidates_from_labels_runs,
+    extract_candidates_from_mask,
+)
 from cell_image_analysis_tpu_torch.ops.fft_features import fft_features
 from cell_image_analysis_tpu_torch.ops.resize import resize_cells
 
@@ -57,10 +67,6 @@ class CellScores(NamedTuple):
     fft_predictions: torch.Tensor
     fft_scores: torch.Tensor
     fft: torch.Tensor                       # (B, F)
-
-
-class CapacityOverflowError(RuntimeError):
-    """A capacity flag fired whose exact re-run twin is not ported."""
 
 
 def _pm1(d: torch.Tensor) -> torch.Tensor:
@@ -108,32 +114,51 @@ def _score_rows(s: CellScores) -> torch.Tensor:
     return torch.cat([torch.stack([c.float() for c in cols], dim=1), s.fft], dim=1)
 
 
-def _raise_on_overflow(seg_ovf: torch.Tensor, run_ovf: torch.Tensor) -> None:
-    seg_any, run_any = bool(seg_ovf.any()), bool(run_ovf.any())
-    if not (seg_any or run_any):
-        return
-    frames = torch.nonzero(seg_ovf | run_ovf).flatten().tolist()
-    what = []
-    if seg_any:
-        what.append("a segmentation capacity (tiled raster m_cap, NMS pair budget or "
-                    "max_candidates) -> the scatter rasterizer / K^2 NMS twin")
-    if run_any:
-        what.append("the run-table rcap -> the pixel regionprops twin")
-    raise CapacityOverflowError(
-        f"score_frames_fused: capacity overflow in frames {frames}: {'; '.join(what)}. "
-        "The exact overflow twin is not ported yet; raise the capacity instead.")
+def _stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwargs: dict):
+    """Segmentation and stage-A candidates of a batch by the segment_fn's
+    route; returns (Candidates, overflow (B,))."""
+    kw = dict(candidate_kwargs)
+    out = segment_fn(segs)
+    seg_ovf = None
+    if getattr(segment_fn, "returns_overflow", False):
+        out, seg_ovf = out
+    if getattr(segment_fn, "returns_mask", False):
+        kw.pop("fg_fraction", None)
+        cand, ovf = extract_candidates_from_mask(out, greens, **kw)
+    elif getattr(segment_fn, "runs_props", False):
+        kw.pop("fg_fraction", None)
+        kw.pop("connectivity", None)
+        cand, ovf = extract_candidates_from_labels_runs(out, greens, **kw)
+    else:
+        kw.pop("rcap", None)
+        kw.pop("connectivity", None)
+        cand = extract_candidates(out, greens, **kw)
+        ovf = torch.zeros(segs.shape[0], dtype=torch.bool, device=segs.device)
+    if seg_ovf is not None:
+        ovf = ovf | seg_ovf
+    return cand, ovf
 
 
 @torch.inference_mode()
 def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens: torch.Tensor,
                        segment_fn, chunk: int = 256, caps: tuple = (64, 96), min_votes: int = 2,
                        out_size: int = 64, clip_limit: float = 0.02,
-                       **candidate_kwargs) -> tuple:
+                       fallback_segment_fn=None, **candidate_kwargs) -> tuple:
     """Screen a (B, H, W) frame batch on one device; returns (scores dict,
     stats dict) of numpy arrays, as JAX `score_frames_fused_wait`."""
-    labels, seg_ovf = segment_fn(segs)
-    cand, run_ovf = extract_candidates_from_labels_runs(labels, greens, **candidate_kwargs)
-    _raise_on_overflow(seg_ovf, run_ovf)
+    cand, ovf = _stage_a(segment_fn, segs, greens, candidate_kwargs)
+    if bool(ovf.any()):
+        if fallback_segment_fn is not None:
+            return score_frames_fused(model, params, segs, greens, fallback_segment_fn,
+                                      chunk=chunk, caps=caps, min_votes=min_votes,
+                                      out_size=out_size, clip_limit=clip_limit,
+                                      **candidate_kwargs)
+        warnings.warn(
+            "score_frames_fused: capacity overflow with no fallback_segment_fn — "
+            "candidate extraction may have dropped or corrupted cells; pass "
+            "fallback_segment_fn or raise the capacity (rcap; for the StarDist "
+            "backend also max_candidates, raster_m_cap and nms_max_pairs)",
+            RuntimeWarning, stacklevel=2)
 
     B, ccap, full_cap = cand.crops.shape[:3]
     N = B * ccap

@@ -13,7 +13,10 @@ implementations that sum in different orders, and both are reported:
 - a prediction whose decision value lies within `tol` of its threshold.
 
 A cell touched by either is excluded from the checks that depend on it.
-Every other difference fails the comparison with an AssertionError.
+Every other difference fails the comparison with an AssertionError.  A
+caller may also name cells to leave out of the comparison altogether
+(`exclude`), such as the StarDist polygons that the scatter rasterizer
+clips to its patch by design.
 """
 
 from __future__ import annotations
@@ -59,15 +62,28 @@ def boundary_flips(labels_a, labels_b, centers, dists, keep,
     return counts
 
 
+def _drop_cells(result: tuple, exclude: set) -> tuple:
+    """The (scores, stats) result without the (frame, label id) cells in
+    `exclude`."""
+    scores, stats = result
+    keep = np.array([c not in exclude for c in zip(stats["frame_index"].tolist(),
+                                                   stats["label_ids"].tolist())], bool)
+    return ({k: v[keep] if isinstance(v, np.ndarray) else v for k, v in scores.items()},
+            {k: v[keep] for k, v in stats.items()})
+
+
 def compare_screens(ref: tuple, got: tuple, flips: dict, mse_threshold: float,
-                    tol: float = 1e-4) -> dict:
+                    tol: float = 1e-4, exclude=()) -> dict:
     """Compare two `(scores, stats)` results of the same frames.
 
     `flips`: {(frame, label id): knife-edge pixels} from `boundary_flips`;
-    `mse_threshold`: the ensemble's reconstruction-error vote threshold.
+    `mse_threshold`: the ensemble's reconstruction-error vote threshold;
+    `exclude`: (frame, label id) cells left out of both results.
     Returns a report
     of the cells compared, those excluded and why, and the largest score
     difference among the compared cells."""
+    if exclude:
+        ref, got = _drop_cells(ref, set(exclude)), _drop_cells(got, set(exclude))
     (s_ref, t_ref), (s_got, t_got) = ref, got
     for k in ("frame_index", "label_ids"):
         if not np.array_equal(t_ref[k], t_got[k]):

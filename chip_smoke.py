@@ -10,15 +10,32 @@ Phases (any failure exits non-zero before the last line is printed):
 1. build `cell_image_analysis_tpu_torch/csrc/*.cu` with nvcc (sm_90a);
 2. each hand-written kernel against its plain PyTorch version on the card
    at main-path shapes (Winograd conv: max|y - ref| / max|ref| < 1e-5;
-   segment sum and CLAHE core: equal), with median times of both;
-3. the main path — StarDist screening of 16 synthetic 1024^2 frames
-   (the bench's frames and settings) through `score_frames_fused`, run
-   twice; the launch counts of the second run must all be > 0;
-4. the port on the GPU against the port on the CPU on one 512^2 frame:
-   identical cell sets, predictions and scores within 1e-4, except what
-   `utils.parity` allows and lists (label pixels within 1e-3 px of a
-   polygon boundary, decisions within 1e-4 of their threshold);
-5. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+   segment sum, CLAHE core and CC labels: equal — CC on the 16 frames'
+   threshold masks at connectivity 1 and 2), with median times of both;
+3. the main path — StarDist screening of the bench's 16 synthetic
+   1024^2 frames (made once, on the host, for phases 2, 3, 5 and 6)
+   through `score_frames_fused`, run twice; the launch counts of the
+   second run must all be > 0 and no overflow flag may fire;
+4. the port on the GPU against the port on the CPU on one 512^2 frame,
+   StarDist and both threshold routes: identical cell sets, predictions
+   and scores within 1e-4, except what `utils.parity` allows and lists
+   (label pixels within 1e-3 px of a polygon boundary, decisions within
+   1e-4 of their threshold);
+5. threshold screening of the 16 frames at the bench's threshold
+   settings: (a) the mask route with the exact label route as fallback,
+   run twice, the second timed; (b) the label route alone (CC kernel,
+   pixel regionprops); (c) the mask route at rcap 8, whose fallback must
+   fire.  (a) and (b) give the same cells, areas and predictions, scores
+   within 1e-4; (c) equals (b) exactly.  The counts are set to 0 before
+   each run and read after it: (a) launches segment sum and CLAHE, (b)
+   the CC kernel too (its row's count), and (c) as many CC calls as (b)
+   (one per batch; each call is three launches: init, union, flatten);
+6. the StarDist exact twin (scatter rasterizer, K^2 NMS pairs, pixel
+   regionprops) on the 16 frames: phase 3's cells, areas and scores
+   within 1e-4, except the listed cells of polygons that the scatter
+   rasterizer clips to its patch; then a run at an NMS budget of 64
+   pairs must fall back to the twin and equal it;
+7. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -46,6 +63,10 @@ WINO_SHAPES = {  # main-path U-Net layers: (B, H, W, Ci, Co)
 }
 CLAHE_CAPS = ((64, 12), (96, 12), (192, 16))  # bucket capacity, ns_cap
 TOL = 1e-4  # GPU-vs-CPU score tolerance, and the near-threshold band
+# utils/bench.py:250-253, the threshold backend's screening settings
+THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
+                 fg_fraction=0.12)
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6}
 
 
 def log(msg: str) -> None:
@@ -107,12 +128,15 @@ def phase_build() -> float:
     return secs
 
 
-def phase_kernels(torch, dev, unet_vars) -> dict:
+def phase_kernels(torch, dev, unet_vars, segs) -> dict:
     from cell_image_analysis_tpu.utils.synthetic import make_frame_instances
+    from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
+    from cell_image_analysis_tpu_torch.ops.cc import cc_min_labels_plain
     from cell_image_analysis_tpu_torch.ops.clahe import (
         clahe_core_plain,
         clahe_prepare,
     )
+    from cell_image_analysis_tpu_torch.ops.cuda.cc import cc_min_labels_cuda
     from cell_image_analysis_tpu_torch.ops.cuda.clahe_kernel import clahe_core_cuda
     from cell_image_analysis_tpu_torch.ops.cuda.segsum import segment_sums_cuda
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
@@ -186,20 +210,45 @@ def phase_kernels(torch, dev, unet_vars) -> dict:
             f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
         ms_c, plain_c = ms_c + t_k, plain_c + t_p
     res["clahe_core"] = dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c)
+
+    # CC labels on the 16 frames' threshold masks (the threshold path's input)
+    masks = threshold_mask(segs)
+    log(f"[2] cc_min_labels input: {tuple(masks.shape)} masks, "
+        f"{float(masks.float().mean()):.4f} foreground")
+    for conn in (1, 2):
+        got = cc_min_labels_cuda(masks, conn)
+        ref = cc_min_labels_plain(masks, conn)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            n_bad = int((got != ref).sum())
+            raise AssertionError(f"cc_min_labels connectivity {conn}: {n_bad} labels differ")
+        err = float((got - ref).abs().max())
+        t_k = time_ms(lambda: cc_min_labels_cuda(masks, conn))
+        t_p = time_ms(lambda: cc_min_labels_plain(masks, conn), n=3)
+        log(f"[2] cc_min_labels connectivity {conn}: equal; kernel {t_k:.3f} ms, "
+            f"plain sweeps {t_p:.3f} ms")
+        if conn == 1:   # the connectivity of the main path
+            res["cc_min_labels"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p)
+        del got, ref
     return res
 
 
-class _RecordingBackend:
-    """Wraps a segment_fn to keep the last batch's overflow flags."""
+class _Recording:
+    """Wraps a segment_fn, keeping its flags, its number of calls and the
+    last batch's overflow flags."""
 
-    def __init__(self, backend):
-        self.backend = backend
-        self.overflow = None
+    def __init__(self, fn):
+        self.fn, self.calls, self.overflow = fn, 0, None
+        for flag in ("returns_mask", "returns_overflow", "runs_props"):
+            if hasattr(fn, flag):
+                setattr(self, flag, getattr(fn, flag))
 
     def __call__(self, segs):
-        labels, ovf = self.backend(segs)
-        self.overflow = ovf
-        return labels, ovf
+        self.calls += 1
+        out = self.fn(segs)
+        if getattr(self.fn, "returns_overflow", False):
+            self.overflow = out[1]
+        return out
 
 
 def _check_result(scores: dict, stats: dict, n_frames: int) -> int:
@@ -217,52 +266,92 @@ def _check_result(scores: dict, stats: dict, n_frames: int) -> int:
     return n
 
 
-def phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a) -> tuple:
+def make_frames(torch, dev) -> tuple:
+    """The bench's 16 frames (utils/bench._make_frames(16, 1024, 80)):
+    (seg channels, green channels), each (16, 1024, 1024) on the card."""
     from cell_image_analysis_tpu.utils.synthetic import make_frame
-    from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params
-    from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
-    from cell_image_analysis_tpu_torch.ops.cuda import clahe_kernel, segsum, winograd
-    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
 
     t0 = time.perf_counter()
-    rng = np.random.default_rng(7)  # utils/bench._make_frames(16, 1024, 80)
+    rng = np.random.default_rng(7)
     frames = np.stack([make_frame(rng, size=1024, n_cells=80) for _ in range(16)])
     log(f"[3] made 16 frames 1024^2 in {time.perf_counter() - t0:.1f} s (host numpy)")
-    segs = torch.tensor(frames[..., 2].astype(np.float32), device=dev)
-    greens = torch.tensor(frames[..., 1].astype(np.float32), device=dev)
-    backend = _RecordingBackend(StarDistBackend(unet_vars, seg_cfg, device=dev))
+    return (torch.tensor(frames[..., 2].astype(np.float32), device=dev),
+            torch.tensor(frames[..., 1].astype(np.float32), device=dev))
+
+
+def _kernel_modules():
+    from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum, winograd
+
+    return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_core": clahe_kernel,
+            "cc_min_labels": cc}
+
+
+def _reset_launches() -> None:
+    for m in _kernel_modules().values():
+        m.LAUNCHES = 0
+
+
+def _read_launches() -> dict:
+    return {name: m.LAUNCHES for name, m in _kernel_modules().items()}
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens) -> tuple:
+    from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params
+    from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+
+    backend = _Recording(StarDistBackend(unet_vars, seg_cfg, device=dev))
     model, params = load_scoring_params(device=dev)
-    mods = (winograd, segsum, clahe_kernel)
 
     def run():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = score_frames_fused(model, params, segs, greens, backend, chunk=32,
-                                 caps=(64, 96), **stage_a)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
+        return _timed(torch, lambda: score_frames_fused(
+            model, params, segs, greens, backend, chunk=32, caps=(64, 96), **stage_a))
 
     (_, _), t_first = run()
     log(f"[3] first run (warm-up) {t_first:.2f} s")
-    for m in mods:
-        m.LAUNCHES = 0
+    _reset_launches()
     (scores, stats), t_run = run()
-    launches = {"winograd_conv3x3": winograd.LAUNCHES, "segment_sum": segsum.LAUNCHES,
-                "clahe_core": clahe_kernel.LAUNCHES}
-    n = _check_result(scores, stats, 16)
+    launches = _read_launches()
+    n_frames = segs.shape[0]
+    n = _check_result(scores, stats, n_frames)
     log(f"[3] segmentation overflow flags per frame: "
-        f"{backend.overflow.int().tolist()} (run-table overflow raises in the pipeline)")
+        f"{backend.overflow.int().tolist()}")
     log(f"[3] cells {n}; rates " + ", ".join(
         f"{k} {scores[f'{k}_anomaly_rate']:.4f}"
         for k in ("conservative", "moderate", "ensemble", "fft")))
     log(f"[3] launches in the timed run: {launches}")
     log(f"[3] timed run: {t_run:.3f} s wall, {n / t_run:.1f} cells/s "
-        f"({16 / t_run:.2f} frames/s)")
+        f"({n_frames / t_run:.2f} frames/s)")
     if bool(backend.overflow.any()):
         raise AssertionError("a segmentation overflow flag is set on the smoke frames")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
-    return launches, n, t_run
+    missing = [k for k in ("winograd_conv3x3", "segment_sum", "clahe_core") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels of the path were not launched: {missing}")
+    return launches, (scores, stats), backend.fn
+
+
+def _screen_threshold(torch, d, segs, greens, params_model, rcap=32, label_route=False,
+                      fallback=True):
+    """One threshold screening on device d; returns ((scores, stats), the
+    fallback's recorder)."""
+    from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+
+    model, params = params_model
+    backend = ThresholdBackend()
+    twin = _Recording(backend.exact_twin())
+    fn = backend.exact_twin() if label_route else backend
+    out = score_frames_fused(model, params, segs, greens, fn, rcap=rcap,
+                             fallback_segment_fn=twin if fallback else None, **THRESH_KW)
+    return out, twin
 
 
 def phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a) -> None:
@@ -274,7 +363,7 @@ def phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a) -> None:
     from cell_image_analysis_tpu_torch.utils.parity import boundary_flips, compare_screens
 
     frame = make_frame(np.random.default_rng(11), size=512, n_cells=25)
-    results, labels = [], []
+    results, labels, thresh = [], [], []
     for d in (dev, torch.device("cpu")):
         backend = StarDistBackend(unet_vars, seg_cfg, device=d)
         model, params = load_scoring_params(device=d)
@@ -285,20 +374,173 @@ def phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a) -> None:
         with torch.inference_mode():
             lab, det = predict_instances(segs, backend.model, seg_cfg)
         labels.append(lab[0].cpu())
+        mask_route, twin = _screen_threshold(torch, d, segs, greens, (model, params))
+        if twin.calls:
+            raise AssertionError(f"[4] threshold mask route overflowed on {d}")
+        label_route, _ = _screen_threshold(torch, d, segs, greens, (model, params),
+                                           label_route=True, fallback=False)
+        thresh.append((mask_route, label_route))
     # the CPU run is the reference; label maps may differ only at knife edges
     flips = {(0, lab): n for lab, n in boundary_flips(
         labels[1], labels[0], det.points[0], det.dists[0], det.keep[0]).items()}
-    report = compare_screens(results[1], results[0], flips,
-                             float(params.ensemble_mse_threshold), tol=TOL)
-    log(f"[4] 512^2 frame, GPU vs CPU: {report['n_cells']} cells, same cell set; "
+    thr = float(params.ensemble_mse_threshold)
+    report = compare_screens(results[1], results[0], flips, thr, tol=TOL)
+    log(f"[4] 512^2 frame, StarDist GPU vs CPU: {report['n_cells']} cells, same cell set; "
         f"max score difference {report['max_score_diff']:.3e}; knife-edge cells "
         f"{report['knife_edge_cells']}; within {TOL} of a threshold "
         f"{report['near_threshold']}")
+    (gpu_mask, gpu_label), (cpu_mask, cpu_label) = thresh
+    for name, ref, got in (("mask route GPU vs CPU", cpu_mask, gpu_mask),
+                           ("label route GPU vs CPU", cpu_label, gpu_label),
+                           ("GPU mask route vs label route", gpu_label, gpu_mask)):
+        report = compare_screens(ref, got, {}, thr, tol=TOL)
+        _check_result(*got, 1)
+        log(f"[4] 512^2 frame, threshold {name}: {report['n_cells']} cells, same cell set; "
+            f"max score difference {report['max_score_diff']:.3e}; within {TOL} of a "
+            f"threshold {report['near_threshold']}")
+
+
+def _assert_same(a: tuple, b: tuple, what: str) -> None:
+    """Two (scores, stats) results are identical."""
+    for x, y in zip(a, b):
+        if x.keys() != y.keys():
+            raise AssertionError(f"{what}: different keys")
+        for k in x:
+            if not np.array_equal(x[k], y[k]):
+                raise AssertionError(f"{what}: {k} differs")
+
+
+def phase_threshold(torch, dev, segs, greens, params_model) -> dict:
+    from cell_image_analysis_tpu_torch.utils.parity import compare_screens
+
+    def run(**kw):
+        return _timed(torch, lambda: _screen_threshold(torch, dev, segs, greens, params_model,
+                                                       **kw))
+
+    def counted(**kw):
+        """One run with the launch counts set to 0 just before it and read
+        just after."""
+        _reset_launches()
+        out = run(**kw)
+        return out, _read_launches()
+
+    (_, _), t_first = run()
+    log(f"[5] (a) mask route, first run (warm-up) {t_first:.2f} s")
+    ((res_a, twin_a), t_a), launches_a = counted()
+    ((res_b, _), t_b), launches_b = counted(label_route=True, fallback=False)
+    ((res_c, twin_c), t_c), launches_c = counted(rcap=8)
+    n_frames = segs.shape[0]
+    n = _check_result(*res_a, n_frames)
+    log(f"[5] (a) mask route + fallback: {n} cells, {n / t_a:.1f} cells/s, {t_a:.3f} s wall "
+        f"({n_frames / t_a:.2f} frames/s); fallback calls {twin_a.calls}; "
+        f"launches {launches_a}")
+    log(f"[5] (b) label route (CC kernel, pixel regionprops): {len(res_b[1]['area'])} cells, "
+        f"{t_b:.3f} s wall (one run); launches {launches_b}")
+    log(f"[5] (c) mask route at rcap 8: fallback calls {twin_c.calls}, {t_c:.3f} s wall "
+        f"(one run, both routes); launches {launches_c}")
+    if twin_a.calls != 0:
+        raise AssertionError("[5] (a) the mask route overflowed at rcap 32")
+    if twin_c.calls != 1:
+        raise AssertionError("[5] (c) the fallback did not fire at rcap 8")
+    missing = [k for k in ("segment_sum", "clahe_core") if launches_a[k] <= 0]
+    missing += [f"(b) {k}" for k in ("cc_min_labels", "segment_sum", "clahe_core")
+                if launches_b[k] <= 0]
+    if missing:
+        raise AssertionError(f"[5] kernels of the threshold path were not launched: {missing}")
+    # the fallback re-runs the whole batch through the label route once
+    if launches_c["cc_min_labels"] != launches_b["cc_min_labels"]:
+        raise AssertionError(f"[5] (c) made {launches_c['cc_min_labels']} CC calls, the label "
+                             f"route {launches_b['cc_min_labels']}")
+    report = compare_screens(res_b, res_a, {}, float(params_model[1].ensemble_mse_threshold),
+                             tol=TOL)
+    log(f"[5] (a) vs (b): same {report['n_cells']} cells and areas; max score difference "
+        f"{report['max_score_diff']:.3e}; within {TOL} of a threshold "
+        f"{report['near_threshold']}")
+    _assert_same(res_c, res_b, "(c) vs (b)")
+    log("[5] (c) equals (b) exactly")
+    return launches_b
+
+
+def _clipped_cells(torch, model, seg_cfg, twin_cfg, segs) -> set:
+    """(frame, label id) of the cells whose label pixels differ between the
+    tiled and the scatter rasterizer.  Each differing pixel must lie outside
+    the scatter patch of the polygon that the tiled render gave it: the
+    scatter rasterizer clips polygons wider than its patch, and nothing
+    else may differ."""
+    from cell_image_analysis_tpu_torch.models.stardist import predict_instances
+    from cell_image_analysis_tpu_torch.ops.rasterize import _compact_and_key
+
+    with torch.inference_mode():
+        tiled, det = predict_instances(segs, model, seg_cfg)
+        scatter, _ = predict_instances(segs, model, twin_cfg)
+    centers, _, keys, keep = _compact_and_key(det.points, det.dists, det.probs, det.keep,
+                                              seg_cfg.raster_cap or None)
+    diff = torch.nonzero(tiled != scatter)
+    if diff.numel() == 0:
+        return set()
+    b, r, c = diff.T
+    lab, lab_s = tiled[b, r, c], scatter[b, r, c]
+    slot_labels = torch.where(keep, 0xFFFF - (keys & 0xFFFF), -1)          # (B, K)
+    match = slot_labels[b] == lab[:, None]
+    if bool((lab == 0).any()) or bool((match.sum(dim=1) != 1).any()):
+        raise AssertionError("[6] the scatter render differs where the tiled one drew "
+                             "no polygon")
+    k = match.int().argmax(dim=1)
+    half = twin_cfg.raster_patch // 2
+    r0 = torch.round(centers[b, k, 0]).int() - half
+    c0 = torch.round(centers[b, k, 1]).int() - half
+    inside = ((r >= r0) & (r < r0 + twin_cfg.raster_patch)
+              & (c >= c0) & (c < c0 + twin_cfg.raster_patch))
+    if bool(inside.any()):
+        raise AssertionError(f"[6] {int(inside.sum())} label pixels differ inside their "
+                             "polygon's scatter patch")
+    pairs = torch.cat([torch.stack([b, lab], 1), torch.stack([b, lab_s], 1)]).tolist()
+    return {(f, lb) for f, lb in pairs if lb > 0}
+
+
+def phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
+               main_result) -> None:
+    import dataclasses
+
+    from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+    from cell_image_analysis_tpu_torch.utils.parity import compare_screens
+
+    model, params = params_model
+    twin = backend.exact_twin()
+
+    def run(fn, fallback=None):
+        return _timed(torch, lambda: score_frames_fused(
+            model, params, segs, greens, fn, chunk=32, caps=(64, 96),
+            fallback_segment_fn=fallback, **stage_a))
+
+    _reset_launches()
+    res_twin, t_twin = run(twin)
+    launches = _read_launches()
+    n = _check_result(*res_twin, segs.shape[0])
+    log(f"[6] exact twin: {n} cells, {t_twin:.3f} s wall (one run), {n / t_twin:.1f} cells/s; "
+        f"launches {launches}")
+    clipped = _clipped_cells(torch, backend.model, seg_cfg, twin.cfg, segs)
+    report = compare_screens(main_result, res_twin, {}, float(params.ensemble_mse_threshold),
+                             tol=TOL, exclude=clipped)
+    log(f"[6] twin vs phase 3: same {report['n_cells']} cells and areas, max score difference "
+        f"{report['max_score_diff']:.3e}; patch-clipped cells left out: {sorted(clipped)}")
+
+    tight = _Recording(StarDistBackend(None, dataclasses.replace(seg_cfg, nms_max_pairs=64),
+                                       model=backend.model))
+    twin_rec = _Recording(twin)
+    res_forced, t_forced = run(tight, fallback=twin_rec)
+    if not (bool(tight.overflow.any()) and twin_rec.calls == 1):
+        raise AssertionError("[6] the 64-pair NMS budget did not fall back to the twin")
+    _assert_same(res_forced, res_twin, "forced fallback vs twin")
+    log(f"[6] NMS budget 64 pairs: overflow in frames "
+        f"{torch.nonzero(tight.overflow).flatten().tolist()}, fell back to the twin, equal to "
+        f"it; {t_forced:.3f} s wall")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4",
+    ap.add_argument("--phases", default=",".join(str(p) for p in sorted(ALL_PHASES)),
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -310,7 +552,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from cell_image_analysis_tpu.config import SegConfig
-    from cell_image_analysis_tpu_torch.io.artifacts import load_unet_variables
+    from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params, load_unet_variables
 
     dev = torch.device("cuda", 0)
     seg_cfg = SegConfig(max_candidates=256, raster_patch=96, raster_cap=128)
@@ -321,13 +563,24 @@ def main() -> int:
         phase_env(torch)
     if 1 in phases:
         phase_build()
-    kernels = phase_kernels(torch, dev, unet_vars) if 2 in phases else {}
-    launches = {}
+    segs = greens = None
+    if phases & {2, 3, 5, 6}:
+        segs, greens = make_frames(torch, dev)
+    kernels = phase_kernels(torch, dev, unet_vars, segs) if 2 in phases else {}
+    launches, main_result, backend = {}, None, None
     if 3 in phases:
-        launches, _, _ = phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a)
+        launches, main_result, backend = phase_main_path(torch, dev, unet_vars, seg_cfg,
+                                                         stage_a, segs, greens)
     if 4 in phases:
         phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a)
-    if phases != {0, 1, 2, 3, 4}:
+    params_model = load_scoring_params(device=dev)
+    if 5 in phases:
+        launches["cc_min_labels"] = phase_threshold(torch, dev, segs, greens,
+                                                    params_model)["cc_min_labels"]
+    if 6 in phases and 3 in phases:
+        phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
+                   main_result)
+    if phases != ALL_PHASES:
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 1
 
@@ -338,6 +591,8 @@ def main() -> int:
                         "cell_image_analysis_tpu/ops/pallas/segsum.py:49"),
         "clahe_core": ("csrc/clahe_core.cu",
                        "cell_image_analysis_tpu/ops/pallas/clahe_kernel.py:184"),
+        "cc_min_labels": ("csrc/cc_min_labels.cu",
+                          "cell_image_analysis_tpu/ops/pallas/cc_kernel.py:80"),
     }
     rows = [dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=rep,
                  launches=launches[name], **kernels[name])

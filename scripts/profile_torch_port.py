@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's main path spends its time, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--frames 16] [--size 1024] [--trace PATH]
+    python3 scripts/profile_torch_port.py [--backend stardist|threshold] [--frames 16]
+                                          [--size 1024] [--trace PATH]
 
 Screens the bench's synthetic frames (seed 7, 80 cells per 1024^2 frame)
-through `score_frames_fused` once to warm up, then:
+through `score_frames_fused` at the bench's settings for the backend
+once to warm up, then:
 
 1. times the stages of one batch with a host clock around synchronized
-   calls: percentile + U-Net forward, the rest of `predict_instances`
-   (top-K, NMS, rasterize), stage A (run regionprops, QC, crops), and the
-   CLAHE -> resize -> scoring bucket loop (the remainder of the full run);
+   calls (best of 3), the CLAHE -> resize -> scoring bucket loop being
+   the remainder of the full run.  StarDist: percentile + U-Net forward,
+   the rest of `predict_instances` (top-K, NMS, rasterize), stage A (run
+   regionprops, QC, crops).  Threshold: `threshold_mask` (order
+   statistics, opening), stage A on the mask (run table, hook CC, run
+   moments, QC, crops); and, outside the total, stage A of the exact
+   label route (CC kernel, pixel regionprops, QC, crops);
 2. traces one full run with `torch.profiler` and prints the device time
    by kernel, the summed device time against the wall time (the device's
    busy share), and with `--trace` writes the Chrome trace there.
@@ -33,6 +39,7 @@ sys.path.insert(0, REPO)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", choices=("stardist", "threshold"), default="stardist")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--cells", type=int, default=80)
@@ -47,9 +54,18 @@ def main() -> int:
     from cell_image_analysis_tpu.config import SegConfig
     from cell_image_analysis_tpu.utils.synthetic import make_frame
     from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params, load_unet_variables
-    from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+    from cell_image_analysis_tpu_torch.models.segmentation import (
+        StarDistBackend,
+        ThresholdBackend,
+        threshold_mask,
+        threshold_segment,
+    )
     from cell_image_analysis_tpu_torch.models.stardist import predict_instances
-    from cell_image_analysis_tpu_torch.ops.extract import extract_candidates_from_labels_runs
+    from cell_image_analysis_tpu_torch.ops.extract import (
+        extract_candidates,
+        extract_candidates_from_labels_runs,
+        extract_candidates_from_mask,
+    )
     from cell_image_analysis_tpu_torch.ops.percentile import normalize_percentile
     from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
 
@@ -61,14 +77,20 @@ def main() -> int:
                        for _ in range(args.frames)])
     segs = torch.tensor(frames[..., 2].astype(np.float32), device=dev)
     greens = torch.tensor(frames[..., 1].astype(np.float32), device=dev)
-    cfg = SegConfig(max_candidates=256, raster_patch=96, raster_cap=128)
-    stage_a = dict(label_capacity=128, cell_capacity=128, rcap=32)
-    backend = StarDistBackend(load_unet_variables(), cfg, device=dev)
     model, params = load_scoring_params(device=dev)
+    if args.backend == "stardist":
+        cfg = SegConfig(max_candidates=256, raster_patch=96, raster_cap=128)
+        stage_a = dict(label_capacity=128, cell_capacity=128, rcap=32)
+        backend = StarDistBackend(load_unet_variables(), cfg, device=dev)
+    else:   # utils/bench.py:250-253
+        stage_a = dict(label_capacity=4096, cell_capacity=128, rcap=32)
+        backend = ThresholdBackend()
 
     def full():
         return score_frames_fused(model, params, segs, greens, backend, chunk=32,
-                                  caps=(64, 96), **stage_a)
+                                  caps=(64, 96), fallback_segment_fn=backend.exact_twin(),
+                                  **stage_a, **({} if args.backend == "stardist"
+                                                else {"fg_fraction": 0.12}))
 
     def timed(fn, n=3):
         out, best = None, float("inf")
@@ -82,17 +104,31 @@ def main() -> int:
 
     full()
     with torch.inference_mode():
-        (_, t_unet) = timed(lambda: backend.model(normalize_percentile(segs)[..., None]))
-        (labels, _), t_seg = timed(lambda: predict_instances(segs, backend.model, cfg))
-        _, t_a = timed(lambda: extract_candidates_from_labels_runs(labels, greens, **stage_a))
+        if args.backend == "stardist":
+            (_, t_unet) = timed(lambda: backend.model(normalize_percentile(segs)[..., None]))
+            (labels, _), t_seg = timed(lambda: predict_instances(segs, backend.model, cfg))
+            _, t_a = timed(lambda: extract_candidates_from_labels_runs(labels, greens, **stage_a))
+            stages = [("percentile + U-Net", t_unet), ("top-K + NMS + raster", t_seg - t_unet),
+                      ("stage A", t_a)]
+        else:
+            mask, t_seg = timed(lambda: threshold_mask(segs))
+            _, t_a = timed(lambda: extract_candidates_from_mask(mask, greens, **stage_a))
+            stages = [("threshold mask", t_seg), ("stage A (mask route)", t_a)]
+            labels, t_lab = timed(lambda: threshold_segment(segs))
+            label_kw = dict(stage_a, fg_fraction=0.12)
+            label_kw.pop("rcap")
+            _, t_la = timed(lambda: extract_candidates(labels, greens, **label_kw))
     (scores, stats), t_full = timed(full)
     n = len(stats["area"])
-    print(f"batch of {args.frames} x {args.size}^2, {n} cells (best of 3, ms):")
-    for name, t in (("percentile + U-Net", t_unet), ("top-K + NMS + raster", t_seg - t_unet),
-                    ("stage A", t_a), ("CLAHE/resize/score loop + host",
-                                       t_full - t_seg - t_a), ("total", t_full)):
+    print(f"{args.backend}: batch of {args.frames} x {args.size}^2, {n} cells (best of 3, ms):")
+    stages += [("CLAHE/resize/score loop + host", t_full - t_seg - t_a), ("total", t_full)]
+    for name, t in stages:
         print(f"  {name:32s} {t:9.2f}  ({100 * t / t_full:5.1f}%)")
     print(f"  cells/s {n / t_full * 1e3:.1f}")
+    if args.backend == "threshold":
+        print(f"  exact label route, outside the total: threshold_segment {t_lab:.2f} ms "
+              f"(threshold mask + CC kernel + compaction), stage A {t_la:.2f} ms "
+              "(pixel regionprops, QC, crops)")
 
     from torch.profiler import ProfilerActivity, profile
 

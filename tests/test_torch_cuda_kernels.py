@@ -22,7 +22,8 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("b,h,w,ci,co", [(1, 8, 8, 1, 32), (2, 18, 22, 5, 7), (1, 34, 66, 64, 130)])
+@pytest.mark.parametrize("b,h,w,ci,co", [(1, 8, 8, 1, 32), (2, 18, 22, 5, 7), (1, 34, 66, 64, 130),
+                                         (1, 33, 17, 16, 32)])
 def test_winograd_kernel_matches_plain(dev, b, h, w, ci, co):
     from cell_image_analysis_tpu_torch.ops.cuda import winograd as launcher
     from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3, winograd_conv3x3_plain
@@ -79,3 +80,39 @@ def test_clahe_kernel_rejects_oversized_tile_grid(dev):
     one = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         clahe_core_cuda(z, z, z, z4, z4, one, one, n_tiles=17 * 17)
+
+
+def _cc_masks():
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:96, 0:96]
+    serp = np.zeros((96, 96), bool)
+    for i, r in enumerate(range(4, 92, 8)):
+        serp[r, 4:92] = True
+        serp[r:r + 9, 91 if i % 2 == 0 else 4] = True
+    return {
+        "1x1": (np.ones((1, 1, 1), bool), 1),
+        "7x300": (rng.random((1, 7, 300)) < 0.6, 1),
+        "2x129x257": (rng.random((2, 129, 257)) < 0.55, 2),
+        "all_true": (np.ones((3, 64, 48), bool), 1),
+        "checkerboard": (((yy + xx) % 2 == 0)[None], 2),
+        "serpentine": (serp[None], 1),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_cc_masks()))
+def test_cc_kernel_matches_plain(dev, name):
+    from cell_image_analysis_tpu_torch.ops.cc import cc_min_labels, cc_min_labels_plain
+    from cell_image_analysis_tpu_torch.ops.cuda import cc as launcher
+
+    mask_np, conn = _cc_masks()[name]
+    mask = torch.from_numpy(mask_np).to(dev)
+    for c in sorted({1, conn}):
+        before = launcher.LAUNCHES
+        got = cc_min_labels(mask, connectivity=c)
+        assert launcher.LAUNCHES == before + 1
+        ref = cc_min_labels_plain(mask, connectivity=c)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == mask.shape
+        assert torch.equal(got, ref), f"connectivity {c}"
+    if name == "checkerboard":   # one component at 8-connectivity, none larger at 4
+        assert int(got.max()) == 1

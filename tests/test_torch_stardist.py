@@ -1,7 +1,11 @@
 """PyTorch port: StarDist `predict_instances` with the committed U-Net
-weights against JAX on a synthetic 128^2 frame — identical label maps,
-keep sets and overflow flags — and its pieces (percentile normalization,
-star NMS, tiled rasterization) on shared inputs."""
+weights against JAX on synthetic 128^2 frames and on a 264^2 frame (not a
+multiple of the 64-px raster tile, so both render with the scatter
+rasterizer) — identical label maps, keep sets and overflow flags — and its
+pieces (percentile normalization, star NMS, tiled and scatter
+rasterization) on shared inputs."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,16 +27,17 @@ def _frame(seed, size, n_cells):
     return make_frame(np.random.default_rng(seed), size=size, n_cells=n_cells)
 
 
-@pytest.mark.parametrize("seed,n_cells", [(7, 4), (8, 6)])
-def test_predict_instances_matches_jax(seed, n_cells):
+@pytest.mark.parametrize("seed,size,n_cells", [(7, 128, 4), (8, 128, 6), (9, 264, 16)])
+def test_predict_instances_matches_jax(seed, size, n_cells):
     from cell_image_analysis_tpu.models.stardist import predict_instances as jax_predict
     from cell_image_analysis_tpu.utils.bench import load_synthetic_unet_variables
 
-    seg = _frame(seed, 128, n_cells)[..., 2].astype(np.float32)
+    seg = _frame(seed, size, n_cells)[..., 2].astype(np.float32)
     labels_j, d_j = jax_predict(jnp.asarray(seg), load_synthetic_unet_variables(), BENCH_SEG)
     backend = StarDistBackend(load_unet_variables(), BENCH_SEG)
     with torch.no_grad():
         labels_t, d_t = predict_instances(torch.from_numpy(seg)[None], backend.model, BENCH_SEG)
+    assert labels_t.shape == (1, size, size)
     assert int(labels_t.max()) > 0
     np.testing.assert_array_equal(labels_t[0].numpy(), np.asarray(labels_j))
     np.testing.assert_array_equal(d_t.keep[0].numpy(), np.asarray(d_j.keep))
@@ -86,3 +91,30 @@ def test_rasterize_tiled_matches_jax(m_cap):
                                             128, 128, tile=64, m_cap=m_cap, raster_cap=48)
     np.testing.assert_array_equal(lab_t[0].numpy(), np.asarray(lab_j))
     assert bool(ovf_t[0]) == bool(ovf_j)
+
+
+@pytest.mark.parametrize("patch,raster_cap", [(32, 48), (24, None)])
+def test_rasterize_scatter_matches_jax(patch, raster_cap):
+    from cell_image_analysis_tpu.ops.rasterize import rasterize_polygons as jax_raster
+    from cell_image_analysis_tpu_torch.ops.rasterize import rasterize_polygons
+
+    # a 100x120 frame (not tile-aligned), polygons up to 14 px in radius:
+    # at patch 24 the widest ones are clipped, on both sides alike
+    polys = [_polygons(s, size=100) for s in (2, 3)]
+    got = rasterize_polygons(*(torch.from_numpy(np.stack(a)) for a in zip(*polys)),
+                             100, 120, patch=patch, raster_cap=raster_cap)
+    assert got.shape == (2, 100, 120)
+    for b, (c, d, p, v) in enumerate(polys):
+        ref = jax_raster(jnp.asarray(c), jnp.asarray(d), jnp.asarray(p), jnp.asarray(v),
+                         100, 120, patch=patch, raster_cap=raster_cap)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
+        assert int(got[b].max()) > 0
+
+
+def test_exact_twin_config():
+    backend = StarDistBackend(load_unet_variables(), BENCH_SEG)
+    twin = backend.exact_twin()
+    assert backend.runs_props and not twin.runs_props
+    assert twin.model is backend.model
+    assert twin.cfg == dataclasses.replace(BENCH_SEG, raster_mode="scatter",
+                                           nms_max_pairs=BENCH_SEG.max_candidates ** 2)

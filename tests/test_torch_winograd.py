@@ -69,9 +69,15 @@ def test_kernel_transform_matches_jax():
 
 
 def test_cpu_wrapper_is_the_plain_version_and_rejects_odd_sides():
+    """The name is kept from when odd sides were rejected; the test now
+    checks that the CPU wrapper is the plain version at even and at odd
+    sides."""
     x = torch.from_numpy(_rand((1, 8, 10, 3), 7))
     W = torch.from_numpy(_rand((3, 3, 3, 5), 8))
     torch.testing.assert_close(winograd_conv3x3(x, W), winograd_conv3x3_plain(x, W),
                                rtol=0, atol=0)
-    with pytest.raises(ValueError):
-        winograd_conv3x3(torch.zeros(1, 7, 8, 3), W)
+    # odd sides are no longer rejected: the CUDA route pads them to even
+    # (tests/test_torch_cuda_kernels.py), the CPU route is the plain version
+    x7 = torch.from_numpy(_rand((1, 7, 9, 3), 9))
+    torch.testing.assert_close(winograd_conv3x3(x7, W), winograd_conv3x3_plain(x7, W),
+                               rtol=0, atol=0)
