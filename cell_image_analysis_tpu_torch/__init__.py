@@ -25,7 +25,9 @@ function runs where its input tensors live.
 
 Importing the package turns TF32 off for matmuls and cuDNN convolutions:
 TF32 keeps ~10 mantissa bits, the same hazard that a single bf16 pass is
-on a TPU, and the screening parity contract needs float32 numerics.
+on a TPU, and the screening parity contract needs float32 numerics.  (The
+Winograd kernel uses the TF32 tensor cores only as 3xTF32, hi/lo halves of
+both operands, which keeps float32-level accuracy.)
 Submodules are imported lazily.
 """
 

@@ -32,7 +32,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
-    "cia_winograd_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cia_winograd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cia_segment_sum_i64": [_P, _P, _P, _L, _I, _I, _P],
     "cia_clahe_core": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     "cia_cc_min_labels": [_P, _P, _P, _I, _I, _I, _I, _P],

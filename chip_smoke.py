@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
    versions, CUTLASS headers; no GPU -> exit 1 at once, no CPU run;
 1. build `cell_image_analysis_tpu_torch/csrc/*.cu` with nvcc (sm_90a);
 2. each hand-written kernel against its plain PyTorch version on the card
-   at main-path shapes (Winograd conv: max|y - ref| / max|ref| < 1e-5;
+   at main-path shapes (Winograd conv at all 13 U-Net layers, B = 16:
+   max|y - ref| / max|ref| < 1e-5, its row's times summed over Conv_1,
+   Conv_7 and Conv_8;
    segment sum, CLAHE core and CC labels: equal — CC on the 16 frames'
    threshold masks at connectivity 1 and 2), with median times of both;
 3. the main path — StarDist screening of the bench's 16 synthetic
@@ -56,11 +58,16 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "cell_image_analysis_tpu_torch"
-WINO_SHAPES = {  # main-path U-Net layers: (B, H, W, Ci, Co)
-    "Conv_1": (16, 1024, 1024, 32, 32),
-    "Conv_7": (16, 128, 128, 256, 256),
-    "Conv_8": (16, 256, 256, 384, 128),
+WINO_LAYERS = {  # the U-Net's 13 3x3 convs on the bench's 16 frames: (B, H, W, Ci, Co)
+    "Conv_0": (16, 1024, 1024, 1, 32), "Conv_1": (16, 1024, 1024, 32, 32),
+    "Conv_2": (16, 512, 512, 32, 64), "Conv_3": (16, 512, 512, 64, 64),
+    "Conv_4": (16, 256, 256, 64, 128), "Conv_5": (16, 256, 256, 128, 128),
+    "Conv_6": (16, 128, 128, 128, 256), "Conv_7": (16, 128, 128, 256, 256),
+    "Conv_8": (16, 256, 256, 384, 128), "Conv_9": (16, 256, 256, 128, 128),
+    "Conv_10": (16, 512, 512, 192, 64), "Conv_11": (16, 512, 512, 64, 64),
+    "Conv_12": (16, 512, 512, 64, 128),
 }
+WINO_ROW = ("Conv_1", "Conv_7", "Conv_8")  # the kernels row's ms sum these three
 CLAHE_CAPS = ((64, 12), (96, 12), (192, 16))  # bucket capacity, ns_cap
 TOL = 1e-4  # GPU-vs-CPU score tolerance, and the near-threshold band
 # utils/bench.py:250-253, the threshold backend's screening settings
@@ -143,33 +150,40 @@ def phase_kernels(torch, dev, unet_vars, segs) -> dict:
     from cell_image_analysis_tpu_torch.ops.runs import run_moment_table
     from cell_image_analysis_tpu_torch.ops.segsum import segment_sums_plain
     from cell_image_analysis_tpu_torch.ops.winograd import (
+        pad_input,
         winograd_conv3x3_plain,
-        winograd_kernel_transform,
+        winograd_operands,
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {}
 
-    # Winograd conv, the committed U-Net weights of three main-path layers
-    err_w, ms_w, plain_w = 0.0, 0.0, 0.0
-    for name, (B, H, W, ci, co) in WINO_SHAPES.items():
+    # Winograd conv, the committed U-Net weights of all 13 layers at main-path shapes
+    err_w, ms_w, plain_w, all_k, all_p = 0.0, 0.0, 0.0, 0.0, 0.0
+    for name, (B, H, W, ci, co) in WINO_LAYERS.items():
         Wt = torch.tensor(unet_vars["params"][name]["kernel"], device=dev)
         bias = torch.tensor(unet_vars["params"][name]["bias"], device=dev)
         x = torch.relu(torch.randn((B, H, W, ci), generator=gen, device=dev))
-        U = winograd_kernel_transform(Wt).reshape(16, ci, co)
-        y = winograd_conv3x3_cuda(x, U, bias)
+        xp, ops = pad_input(x), winograd_operands(Wt, bias)
+        y = winograd_conv3x3_cuda(xp, *ops)
         ref = winograd_conv3x3_plain(x, Wt, bias)
         torch.cuda.synchronize()
         abs_err = float((y - ref).abs().max())
         rel = abs_err / float(ref.abs().max())
-        t_k = time_ms(lambda: winograd_conv3x3_cuda(x, U, bias))
+        t_k = time_ms(lambda: winograd_conv3x3_cuda(xp, *ops))
         t_p = time_ms(lambda: winograd_conv3x3_plain(x, Wt, bias))
+        pad = (f"; the wrapper's channel pad {ci}->{xp.shape[-1]} {time_ms(lambda: pad_input(x)):.3f} ms"
+               if xp.shape != x.shape else "")
         log(f"[2] winograd {name} {B}x{H}x{W}x{ci}->{co}: max abs err {abs_err:.3e}, "
-            f"rel {rel:.3e}; kernel {t_k:.3f} ms, plain F.conv2d {t_p:.3f} ms")
+            f"rel {rel:.3e}; kernel {t_k:.3f} ms, plain F.conv2d {t_p:.3f} ms{pad}")
         if not rel < 1e-5:
             raise AssertionError(f"winograd {name}: relative error {rel:.3e} >= 1e-5")
-        err_w, ms_w, plain_w = max(err_w, abs_err), ms_w + t_k, plain_w + t_p
-        del x, y, ref
+        err_w, all_k, all_p = max(err_w, abs_err), all_k + t_k, all_p + t_p
+        if name in WINO_ROW:
+            ms_w, plain_w = ms_w + t_k, plain_w + t_p
+        del x, xp, y, ref
+    log(f"[2] winograd, all 13 layers: kernel {all_k:.3f} ms, plain {all_p:.3f} ms; "
+        f"{' + '.join(WINO_ROW)}: kernel {ms_w:.3f} ms, plain {plain_w:.3f} ms")
     res["winograd_conv3x3"] = dict(max_abs_err=err_w, ms=ms_w, plain_ms=plain_w)
 
     # segment sum over one 1024-row frame's run table (true instance labels)

@@ -22,8 +22,15 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("b,h,w,ci,co", [(1, 8, 8, 1, 32), (2, 18, 22, 5, 7), (1, 34, 66, 64, 130),
-                                         (1, 33, 17, 16, 32)])
+# (Ci, Co) of the U-Net's 13 3x3 convs, Conv_0 .. Conv_12
+UNET_CONVS = [(1, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256),
+              (256, 256), (384, 128), (128, 128), (192, 64), (64, 64), (64, 128)]
+WINO_CASES = ([(1, 8, 8, 1, 32), (2, 18, 22, 5, 7), (1, 34, 66, 64, 130), (1, 33, 17, 16, 32)]
+              + [(2, 20, 36, ci, co) for ci, co in UNET_CONVS]      # 10x18 tiles: ragged blocks
+              + [(1, 66, 130, 32, 64), (1, 2, 2, 8, 32), (3, 2, 46, 24, 40), (1, 130, 2, 3, 1)])
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", WINO_CASES)
 def test_winograd_kernel_matches_plain(dev, b, h, w, ci, co):
     from cell_image_analysis_tpu_torch.ops.cuda import winograd as launcher
     from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3, winograd_conv3x3_plain
@@ -36,7 +43,24 @@ def test_winograd_kernel_matches_plain(dev, b, h, w, ci, co):
     y = winograd_conv3x3(x, W, bias)
     assert launcher.LAUNCHES == before + 1
     ref = winograd_conv3x3_plain(x, W, bias)
+    assert y.shape == ref.shape
     assert float((y - ref).abs().max()) / float(ref.abs().max()) < 1e-5
+
+
+def test_winograd_launcher_rejects_what_the_kernel_does_not_take(dev):
+    from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
+    from cell_image_analysis_tpu_torch.ops.winograd import winograd_operands
+
+    ops = winograd_operands(torch.randn((3, 3, 8, 40), device=dev))
+    x = torch.randn((1, 8, 8, 8), device=dev)
+    winograd_conv3x3_cuda(x, *ops)
+    for bad in (x[..., :5], x[:, :7], x.double()):
+        with pytest.raises((ValueError, TypeError)):
+            winograd_conv3x3_cuda(bad, *ops)
+    with pytest.raises(ValueError):
+        winograd_conv3x3_cuda(x, ops[0][:1], ops[1], ops[2])        # one Co block of two
+    with pytest.raises(ValueError):
+        winograd_conv3x3_cuda(x.cpu(), *ops)
 
 
 def test_segment_sum_kernel_matches_plain(dev):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cell_image_analysis_tpu.config import SegConfig
 from cell_image_analysis_tpu_torch.io.artifacts import SCORING_PARAMS_PATH
@@ -72,3 +73,56 @@ def padded_crops(rng, sizes, cap, scale=3000.0, garbage=1e9):
 def torch_threads() -> None:
     """The suite runs under several xdist workers: one thread each."""
     torch.set_num_threads(1)
+
+
+def unblock_filter(Ub: torch.Tensor) -> torch.Tensor:
+    """`ops.winograd.kernel_filter_layout` undone: (Co_p/32, Ci_p/8, 16, 2,
+    32, 4) -> (16, Ci_p, Co_p)."""
+    cb, ch = Ub.shape[:2]
+    return Ub.permute(2, 1, 3, 5, 0, 4).reshape(16, 8 * ch, 32 * cb)
+
+
+def winograd_kernel_emulation(xp: torch.Tensor, U_hi: torch.Tensor, U_lo: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of `csrc/winograd_conv3x3.cu` in float32 torch on the
+    CPU, on the launcher's operands (`ops.winograd.pad_input`,
+    `winograd_operands`): the input transform V = B^T d B with the kernel's
+    adds, V split into TF32 halves, the three products lo*hi + hi*lo +
+    hi*hi summed over Ci in float32, and the inverse transform plus bias,
+    as the kernel's two warpgroups form it: the partial Y of position rows
+    0-1 plus that of rows 2-3.  TF32 products are exact in float32, so only
+    the order of the sums over Ci differs from the tensor cores."""
+    from cell_image_analysis_tpu_torch.ops.winograd import tf32_split
+
+    B, H, W, ci = xp.shape
+    co = bias.shape[0]
+    d = F.pad(xp, (0, 0, 1, 1, 1, 1)).unfold(1, 4, 2).unfold(2, 4, 2)  # (B, H/2, W/2, ci, 4, 4)
+    rt = torch.stack([d[..., 0, :] - d[..., 2, :], d[..., 1, :] + d[..., 2, :],
+                      d[..., 2, :] - d[..., 1, :], d[..., 1, :] - d[..., 3, :]], dim=-2)
+    V = torch.stack([rt[..., 0] - rt[..., 2], rt[..., 1] + rt[..., 2],
+                     rt[..., 2] - rt[..., 1], rt[..., 1] - rt[..., 3]], dim=-1)
+    V = V.reshape(-1, ci, 16).permute(2, 0, 1)                             # (16, tiles, ci)
+    V_hi, V_lo = tf32_split(V)
+    U_hi, U_lo = unblock_filter(U_hi)[..., :co], unblock_filter(U_lo)[..., :co]
+    M = V_lo @ U_hi + V_hi @ U_lo + V_hi @ U_hi                            # (16, tiles, co)
+    m = M.permute(1, 2, 0).reshape(B, H // 2, W // 2, co, 4, 4)
+
+    def partial(c0, c1):  # A^T's columns for the rows a with c0[a], c1[a] in output rows 0, 1
+        g0 = sum(c * m[..., a, :] for a, c in enumerate(c0) if c)
+        g1 = sum(c * m[..., a, :] for a, c in enumerate(c1) if c)
+        return torch.stack([torch.stack([g[..., 0] + g[..., 1] + g[..., 2],
+                                         g[..., 1] - g[..., 2] - g[..., 3]], dim=-1)
+                            for g in (g0, g1)], dim=-2)                   # (..., co, 2, 2)
+
+    y = partial((1, 1, 0, 0), (0, 1, 0, 0)) + partial((0, 0, 1, 0), (0, 0, -1, -1))
+    y = y + bias[:, None, None]
+    return y.permute(0, 1, 4, 2, 5, 3).reshape(B, H, W, co)
+
+
+def winograd_3xtf32(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """What the CUDA route of `ops.winograd.winograd_conv3x3` computes, on
+    the CPU: the wrapper's padding and operands, the kernel's arithmetic."""
+    from cell_image_analysis_tpu_torch.ops.winograd import pad_input, winograd_operands
+
+    h, w = x.shape[1:3]
+    return winograd_kernel_emulation(pad_input(x), *winograd_operands(W, bias))[:, :h, :w]
