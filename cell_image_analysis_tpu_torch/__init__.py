@@ -10,7 +10,7 @@ hand-written CUDA kernels (`csrc/`, built by `ops/cuda/_build.py`):
 
 - every 3x3 conv of the StarDist U-Net -> `csrc/winograd_conv3x3.cu`;
 - the run- and pixel-moment segment sums of stage A -> `csrc/segment_sum.cu`;
-- the per-cell CLAHE core -> `csrc/clahe_core.cu`;
+- the CLAHE of a size bucket of cell crops -> `csrc/clahe_cells.cu`;
 - the connected components of the threshold backend's label maps ->
   `csrc/cc_min_labels.cu`.
 
@@ -18,10 +18,15 @@ Each kernel's wrapper launches it for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; the CPU tests hold the plain versions
 against the JAX package.
 
-Device policy: nothing picks a device implicitly.  The entry points that
-own tensors (`models.segmentation.StarDistBackend`,
-`io.artifacts.load_scoring_params`) take a `device` argument; every other
-function runs where its input tensors live.
+Device policy: the entry points that own tensors
+(`models.segmentation.StarDistBackend`, `io.artifacts.load_scoring_params`
+and `scoring_params_from_numpy`) put them on the card unless the caller
+passes `device="cpu"`; without a card and without that argument they
+raise.  Every other function runs where its input tensors live.
+
+The port imports nothing of the JAX package: its settings
+(`config.SegConfig`) and synthetic frames (`utils.synthetic`) are its own
+copies.
 
 Importing the package turns TF32 off for matmuls and cuDNN convolutions:
 TF32 keeps ~10 mantissa bits, the same hazard that a single bf16 pass is

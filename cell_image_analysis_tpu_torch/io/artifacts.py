@@ -7,7 +7,8 @@
 - `unet_state_from_jax` / `cae_state_from_jax` map flax variables onto the
   port's `nn.Module` state dicts (HWIO -> OIHW).
 - `load_scoring_params` reads `assets/scoring_synthetic.npz`
-  (scripts/make_torch_port_assets.py) into a `ScoringParams` of tensors.
+  (scripts/make_torch_port_assets.py) into a `ScoringParams` of tensors,
+  on the card unless the caller passes `device="cpu"`.
 
 Like the JAX package, `load_unet_variables` uses `pickle.load`, which runs
 code from the file: only load files you trust.
@@ -25,6 +26,15 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__f
 UNET_WEIGHTS_PATH = os.path.join(_REPO_ROOT, "assets", "unet_synthetic.pkl")
 SCORING_PARAMS_PATH = os.path.join(_REPO_ROOT, "assets", "scoring_synthetic.npz")
 _UNET_MAGIC = "cell_image_analysis_tpu/unet-synthetic-v1"
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when it is None.  A CUDA device on a machine
+    without one raises: nothing runs on the CPU unless the caller asks."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
 
 
 def load_unet_variables(path: str | None = None) -> dict:
@@ -85,12 +95,12 @@ def _nest_cae(arrays: dict) -> dict:
 
 def scoring_params_from_numpy(arrays: dict, device=None):
     """Named numpy arrays (the layout scripts/make_torch_port_assets.py
-    writes) -> `(CAE module, ScoringParams)` on `device`."""
+    writes) -> `(CAE module, ScoringParams)` on `device` (default: the card)."""
     from cell_image_analysis_tpu_torch.models.cae import CAE
     from cell_image_analysis_tpu_torch.models.svm import SVMParams
     from cell_image_analysis_tpu_torch.pipeline.scoring import ScoringParams
 
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
 
     def t(name):
         return torch.as_tensor(np.asarray(arrays[name], np.float32), device=device)

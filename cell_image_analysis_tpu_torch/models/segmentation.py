@@ -28,8 +28,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from cell_image_analysis_tpu.config import SegConfig
-from cell_image_analysis_tpu_torch.io.artifacts import unet_state_from_jax
+from cell_image_analysis_tpu_torch.config import SegConfig
+from cell_image_analysis_tpu_torch.io.artifacts import resolve_device, unet_state_from_jax
 from cell_image_analysis_tpu_torch.models.stardist import predict_instances
 from cell_image_analysis_tpu_torch.models.unet import StarDistUNet
 from cell_image_analysis_tpu_torch.ops.cc import label_components
@@ -138,7 +138,9 @@ class StarDistBackend:
     """Label-map segment_fn for `pipeline.scoring.score_frames_fused`.
 
     `runs_props` routes stage A through the run-length label regionprops;
-    False routes it through the pixel regionprops (the exact twin)."""
+    False routes it through the pixel regionprops (the exact twin).  The
+    U-Net built from `variables` goes to `device`, by default the card; a
+    `model` passed in stays where it is."""
 
     returns_mask = False
     returns_overflow = True
@@ -152,7 +154,7 @@ class StarDistBackend:
                                  base_filters=cfg.base_filters,
                                  head_filters=cfg.head_filters, grid=cfg.grid)
             model.load_state_dict(unet_state_from_jax(variables))
-            model = model.to(torch.device(device or "cpu")).eval()
+            model = model.to(resolve_device(device)).eval()
         self.model = model
 
     def exact_twin(self) -> StarDistBackend:

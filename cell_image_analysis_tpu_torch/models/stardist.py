@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from cell_image_analysis_tpu.config import SegConfig
+from cell_image_analysis_tpu_torch.config import SegConfig
 from cell_image_analysis_tpu_torch.ops import gather_rows
 from cell_image_analysis_tpu_torch.ops.nms import star_nms
 from cell_image_analysis_tpu_torch.ops.percentile import normalize_percentile

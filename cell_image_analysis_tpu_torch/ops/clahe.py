@@ -1,14 +1,19 @@
 """CLAHE of capacity-padded cell crops (skimage equalize_adapthist semantics).
 
 Counterpart of `cell_image_analysis_tpu/ops/clahe.py` on its `impl="pallas"`
-path (`_clahe_cells_pallas`): tensor code prepares, per cell, the exact
+path (`_clahe_cells_pallas`).  The plain version, `clahe_cells_plain`, is
+that path in tensor code: `clahe_prepare` computes, per cell, the exact
 14-bit quantization, the reflect-folded virtual grid (bin and tile id of
 every virtual pixel), and the four corner tiles and integer weight
-numerators of every output pixel; `clahe_core` then builds the tile
+numerators of every output pixel; `clahe_core_plain` builds the tile
 histograms, clips and redistributes them, forms the integer CDF maps and
-blends `S // (kh*kw)`; the min-max rescale follows.  `clahe_core` launches
-`csrc/clahe_core.cu` for CUDA tensors and runs its plain version for CPU
-tensors.  All core arithmetic is on integers, so both agree bit for bit.
+blends `S // (kh*kw)`; the min-max rescale follows.
+
+`clahe_cells` and `clahe_bucket` run the plain version for CPU tensors
+and launch the fused kernel `csrc/clahe_cells.cu` (all of the above in one
+launch a size bucket, reading the crops in place) for CUDA tensors.  The
+core arithmetic is on integers and the few float steps are IEEE, so both
+agree bit for bit.
 """
 
 from __future__ import annotations
@@ -55,7 +60,9 @@ def _quantize14(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def clahe_core_plain(vbins, vtiles, pbins, ptiles, pw, clim, area, n_tiles: int):
-    """The plain version of `clahe_core` (same contract)."""
+    """Per-cell CLAHE core on prepared int32 inputs: vbins/vtiles (C, Pv)
+    (tile -1 = outside every tile), pbins (C, P), ptiles/pw (C, P, 4), clim
+    and area (C,).  Returns (C, P) float32 floor-blended grays."""
     C, Pv = vbins.shape
     dev = vbins.device
     ok = vtiles >= 0
@@ -100,20 +107,9 @@ def clahe_core_plain(vbins, vtiles, pbins, ptiles, pw, clim, area, n_tiles: int)
     return (S // area.long()[:, None]).float()
 
 
-def clahe_core(vbins, vtiles, pbins, ptiles, pw, clim, area, n_tiles: int) -> torch.Tensor:
-    """Per-cell CLAHE core on prepared int32 inputs: vbins/vtiles (C, Pv)
-    (tile -1 = outside every tile), pbins (C, P), ptiles/pw (C, P, 4), clim
-    and area (C,).  Returns (C, P) float32 floor-blended grays."""
-    if vbins.device.type == "cpu":
-        return clahe_core_plain(vbins, vtiles, pbins, ptiles, pw, clim, area, n_tiles)
-    from cell_image_analysis_tpu_torch.ops.cuda.clahe_kernel import clahe_core_cuda
-
-    return clahe_core_cuda(vbins, vtiles, pbins, ptiles, pw, clim, area, n_tiles)
-
-
 def clahe_prepare(crops, heights, widths, clip_limit: float = 0.02, grid: int = 8,
                   ns_cap: int = NS_CAP):
-    """The per-cell inputs of `clahe_core` and the (C, cap, cap) valid mask."""
+    """The per-cell inputs of `clahe_core_plain` and the (C, cap, cap) valid mask."""
     C, cap, _ = crops.shape
     dev = crops.device
     if max(1, cap // grid) ** 2 * (NR_OF_GRAY - 1) >= 2 ** 24:
@@ -162,17 +158,15 @@ def clahe_prepare(crops, heights, widths, clip_limit: float = 0.02, grid: int = 
             clim.int(), khw.int(), valid)
 
 
-def clahe_cells(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
-                clip_limit: float = 0.02, grid: int = 8, ns_cap: int = NS_CAP) -> torch.Tensor:
-    """Batched CLAHE of (C, cap, cap) crops whose valid region is
-    [:h, :w]; every routed cell must have ceil(side / max(1, side // grid))
-    <= ns_cap per axis.  Returns (C, cap, cap) float32 in [0, 1], padding 0."""
+def clahe_cells_plain(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
+                      clip_limit: float = 0.02, grid: int = 8, ns_cap: int = NS_CAP) -> torch.Tensor:
+    """The plain version of `clahe_cells` (same contract), on any device."""
     C, cap, _ = crops.shape
     if C == 0:
         return torch.zeros_like(crops, dtype=torch.float32)
     (vbins, vtiles, pbins, ptiles, pw, clim, area, valid) = clahe_prepare(
         crops, heights, widths, clip_limit=clip_limit, grid=grid, ns_cap=ns_cap)
-    out = clahe_core(vbins, vtiles, pbins, ptiles, pw, clim, area, ns_cap * ns_cap)
+    out = clahe_core_plain(vbins, vtiles, pbins, ptiles, pw, clim, area, ns_cap * ns_cap)
     out = out.reshape(C, cap, cap)
 
     big = torch.finfo(torch.float32).max
@@ -180,3 +174,32 @@ def clahe_cells(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor
     hi2 = torch.where(valid, out, -big).amax(dim=(1, 2), keepdim=True)
     scale2 = torch.where(hi2 > lo2, torch.ones_like(hi2) / (hi2 - lo2), torch.zeros_like(hi2))
     return torch.where(valid, (out - lo2) * scale2, torch.zeros_like(out))
+
+
+def clahe_bucket(crops: torch.Tensor, ids: torch.Tensor, heights: torch.Tensor,
+                 widths: torch.Tensor, cap: int, clip_limit: float = 0.02, grid: int = 8,
+                 ns_cap: int = NS_CAP) -> torch.Tensor:
+    """CLAHE of the cells `ids` (C,) of an (N, full_cap, full_cap) crop
+    tensor with heights and widths (N,), at capacity `cap`: what
+    `clahe_cells(crops[ids][:, :cap, :cap], heights[ids], widths[ids])`
+    returns.  CUDA tensors go through one launch of the fused kernel, which
+    reads the crops in place (float32, int32 ids/heights/widths)."""
+    if crops.device.type == "cpu":
+        ids = ids.long()
+        return clahe_cells_plain(crops[ids][:, :cap, :cap], heights[ids], widths[ids],
+                                 clip_limit=clip_limit, grid=grid, ns_cap=ns_cap)
+    from cell_image_analysis_tpu_torch.ops.cuda.clahe_kernel import clahe_cells_cuda
+
+    return clahe_cells_cuda(crops, ids, heights, widths, cap, clip_limit=clip_limit, grid=grid,
+                            ns_cap=ns_cap)
+
+
+def clahe_cells(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
+                clip_limit: float = 0.02, grid: int = 8, ns_cap: int = NS_CAP) -> torch.Tensor:
+    """Batched CLAHE of (C, cap, cap) crops whose valid region is
+    [:h, :w]; every routed cell must have ceil(side / max(1, side // grid))
+    <= ns_cap per axis.  Returns (C, cap, cap) float32 in [0, 1], padding 0."""
+    C, cap, _ = crops.shape
+    ids = torch.arange(C, dtype=torch.int32, device=crops.device)
+    return clahe_bucket(crops.float().contiguous(), ids, heights.int(), widths.int(), cap,
+                        clip_limit=clip_limit, grid=grid, ns_cap=ns_cap)

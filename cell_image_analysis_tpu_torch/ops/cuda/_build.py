@@ -6,9 +6,11 @@ One `nvcc` call compiles every source for `sm_90a` into
 rebuilds and an unchanged tree reuses the library.  The sources have a
 plain C interface (no PyTorch headers), which keeps the build to seconds.
 
-Every C entry point takes its pointers and the CUDA stream as `void*`,
-launches on that stream, and returns `cudaGetLastError()`; `check` raises
-when it is not 0.  Nothing here runs at import time.
+Every C entry point that launches takes its pointers and the CUDA stream
+as `void*`, launches on that stream, and returns `cudaGetLastError()`;
+`check` raises when it is not 0.  `NVCC_FLAGS` has no `--use_fast_math`:
+the CLAHE kernel's float divisions must stay IEEE.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
     "cia_winograd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cia_segment_sum_i64": [_P, _P, _P, _L, _I, _I, _P],
-    "cia_clahe_core": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
+    "cia_clahe_cells": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
     "cia_cc_min_labels": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 

@@ -6,9 +6,10 @@ Counterpart of `cell_image_analysis_tpu/pipeline/scoring.py`:
   the conservative and moderate RBF SVMs, the ensemble vote, the FFT
   features and the FFT SVM, for a (B, 64, 64, 1) batch of cells;
 - `score_frames_fused`: the screening of a frame batch on one device —
-  segmentation, stage A, size buckets (caps 64 and 96 at ns_cap 12, the
-  full crop capacity at ns_cap 16), CLAHE -> resize -> `score_cells` per
-  chunk — returning the same `(scores, stats)` pair as the JAX
+  segmentation, stage A, size buckets (`size_buckets`: caps 64 and 96 at
+  ns_cap 12, the full crop capacity at ns_cap 16), CLAHE once a bucket
+  (one kernel launch on the GPU), then resize -> `score_cells` per chunk
+  of it — returning the same `(scores, stats)` pair as the JAX
   `score_frames_fused_wait`.
 
 Stage A takes one of JAX `_stage_a_one`'s three routes, by the
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from cell_image_analysis_tpu_torch.models.svm import SVMParams, decision_function
-from cell_image_analysis_tpu_torch.ops.clahe import NS_CAP, NS_CAP_16PX, clahe_cells
+from cell_image_analysis_tpu_torch.ops.clahe import NS_CAP, NS_CAP_16PX, clahe_bucket
 from cell_image_analysis_tpu_torch.ops.extract import (
     extract_candidates,
     extract_candidates_from_labels_runs,
@@ -139,6 +140,24 @@ def _stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwa
     return cand, ovf
 
 
+def size_buckets(heights: torch.Tensor, widths: torch.Tensor, valid: torch.Tensor,
+                 caps: tuple, full_cap: int) -> list:
+    """The CLAHE size buckets of the (N,) cells: [(cell indices, cap,
+    ns_cap)], each cell in the tightest capacity that fits; cells with a
+    side of 13-15 px need 13-15 tiles on that axis, so they ride the last
+    bucket (the full crop capacity, ns_cap 16)."""
+    all_caps = tuple(c for c in sorted(caps) if c < full_cap) + (full_cap,)
+    ns_ok = (((heights >= 16) | (heights <= 12)) & ((widths >= 16) | (widths <= 12)))
+    buckets = []
+    fits_prev = torch.zeros_like(valid)
+    for cap_b in all_caps[:-1]:
+        fits = (heights <= cap_b) & (widths <= cap_b) & ns_ok
+        buckets.append((valid & fits & ~fits_prev, cap_b, NS_CAP_16PX))
+        fits_prev = fits
+    buckets.append((valid & ~fits_prev, all_caps[-1], NS_CAP))
+    return [(torch.nonzero(mask).flatten(), cap_b, ns_cap) for mask, cap_b, ns_cap in buckets]
+
+
 @torch.inference_mode()
 def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens: torch.Tensor,
                        segment_fn, chunk: int = 256, caps: tuple = (64, 96), min_votes: int = 2,
@@ -162,31 +181,21 @@ def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens:
 
     B, ccap, full_cap = cand.crops.shape[:3]
     N = B * ccap
-    crops = cand.crops.reshape(N, full_cap, full_cap)
-    heights = cand.heights.reshape(-1)
-    widths = cand.widths.reshape(-1)
+    crops = cand.crops.reshape(N, full_cap, full_cap).float().contiguous()
+    heights = cand.heights.reshape(-1).int()
+    widths = cand.widths.reshape(-1).int()
     valid = cand.valid.reshape(-1)
 
-    # size buckets: the tightest capacity that fits; cells with a side of
-    # 13-15 px need 13-15 tiles on that axis, so they ride the last bucket
-    all_caps = tuple(c for c in sorted(caps) if c < full_cap) + (full_cap,)
-    ns_ok = (((heights >= 16) | (heights <= 12)) & ((widths >= 16) | (widths <= 12)))
-    buckets = []
-    fits_prev = torch.zeros_like(valid)
-    for cap_b in all_caps[:-1]:
-        fits = (heights <= cap_b) & (widths <= cap_b) & ns_ok
-        buckets.append((valid & fits & ~fits_prev, cap_b, NS_CAP_16PX))
-        fits_prev = fits
-    buckets.append((valid & ~fits_prev, all_caps[-1], NS_CAP))
-
     rows = torch.zeros((N, _FUSED_D), dtype=torch.float32, device=crops.device)
-    for mask, cap_b, ns_cap in buckets:
-        idx = torch.nonzero(mask).flatten()
+    for idx, cap_b, ns_cap in size_buckets(heights, widths, valid, caps, full_cap):
+        if idx.numel() == 0:
+            continue
+        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b, clip_limit=clip_limit,
+                              ns_cap=ns_cap)
         for start in range(0, idx.numel(), chunk):
             ids = idx[start:start + chunk]
-            c = crops[ids][:, :cap_b, :cap_b]
+            eq = eq_all[start:start + chunk]
             h, w = heights[ids], widths[ids]
-            eq = clahe_cells(c, h, w, clip_limit=clip_limit, ns_cap=ns_cap)
             cells = resize_cells(eq, h, w, out_size=out_size)
             rows[ids] = _score_rows(score_cells(model, params, cells[..., None],
                                                 min_votes=min_votes))

@@ -9,15 +9,25 @@ Phases (any failure exits non-zero before the last line is printed):
    versions, CUTLASS headers; no GPU -> exit 1 at once, no CPU run;
 1. build `cell_image_analysis_tpu_torch/csrc/*.cu` with nvcc (sm_90a);
 2. each hand-written kernel against its plain PyTorch version on the card
-   at main-path shapes (Winograd conv at all 13 U-Net layers, B = 16:
-   max|y - ref| / max|ref| < 1e-5, its row's times summed over Conv_1,
-   Conv_7 and Conv_8;
-   segment sum, CLAHE core and CC labels: equal — CC on the 16 frames'
-   threshold masks at connectivity 1 and 2), with median times of both;
+   at main-path shapes, with the kernel's device time (torch.profiler over
+   20 launches), an event-timed wrapper call, the plain version's time,
+   the one PyTorch call that computes the same function where there is
+   one, and the bound (the least time the card could take: bytes over
+   3.35 TB/s or operations over their peak, H100 SXM published figures):
+   Winograd conv at all 13 U-Net layers, B = 16: max|y - ref| / max|ref|
+   < 1e-5, its row summed over Conv_1, Conv_7 and Conv_8, library call
+   cuDNN fp32; segment sum on the 16 frames' run table (524,288 x 6):
+   equal, library call `index_add_`; the fused CLAHE kernel on 32 random
+   cells at each bucket capacity, on the main path's own size buckets
+   (StarDist stage A of the 16 frames; its row sums these) and on the
+   threshold path's (the mask route's stage A; the row's `threshold_*`
+   keys): bit-equal; CC labels on the 16 frames' threshold masks at
+   connectivity 1 and 2: equal;
 3. the main path — StarDist screening of the bench's 16 synthetic
    1024^2 frames (made once, on the host, for phases 2, 3, 5 and 6)
    through `score_frames_fused`, run twice; the launch counts of the
-   second run must all be > 0 and no overflow flag may fire;
+   second run must all be > 0, CLAHE at most once a non-empty size bucket,
+   and no overflow flag may fire;
 4. the port on the GPU against the port on the CPU on one 512^2 frame,
    StarDist and both threshold routes: identical cell sets, predictions
    and scores within 1e-4, except what `utils.parity` allows and lists
@@ -29,9 +39,10 @@ Phases (any failure exits non-zero before the last line is printed):
    pixel regionprops); (c) the mask route at rcap 8, whose fallback must
    fire.  (a) and (b) give the same cells, areas and predictions, scores
    within 1e-4; (c) equals (b) exactly.  The counts are set to 0 before
-   each run and read after it: (a) launches segment sum and CLAHE, (b)
-   the CC kernel too (its row's count), and (c) as many CC calls as (b)
-   (one per batch; each call is three launches: init, union, flatten);
+   each run and read after it: (a) launches segment sum and CLAHE (at
+   most once a size bucket), (b) the CC kernel too (its row's count), and
+   (c) as many CC calls as (b) (one per batch; each call is three
+   launches: init, union, flatten);
 6. the StarDist exact twin (scatter rasterizer, K^2 NMS pairs, pixel
    regionprops) on the 16 frames: phase 3's cells, areas and scores
    within 1e-4, except the listed cells of polygons that the scatter
@@ -70,9 +81,12 @@ WINO_LAYERS = {  # the U-Net's 13 3x3 convs on the bench's 16 frames: (B, H, W, 
 WINO_ROW = ("Conv_1", "Conv_7", "Conv_8")  # the kernels row's ms sum these three
 CLAHE_CAPS = ((64, 12), (96, 12), (192, 16))  # bucket capacity, ns_cap
 TOL = 1e-4  # GPU-vs-CPU score tolerance, and the near-threshold band
+H100_HBM_BYTES_S = 3.35e12  # H100 SXM published peaks (NVIDIA data sheet), at 700 W
+H100_TF32_FLOPS = 495e12
 # utils/bench.py:250-253, the threshold backend's screening settings
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
+N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
 ALL_PHASES = {0, 1, 2, 3, 4, 5, 6}
 
 
@@ -87,7 +101,9 @@ def smi_line() -> str:
 
 
 def time_ms(fn, n: int = 7) -> float:
-    """Median CUDA-event time of `fn()` over n runs after one warm-up."""
+    """Median CUDA-event time of `fn()` over n runs after one warm-up: one
+    host-wrapped call between two events, so at tens of microseconds it
+    measures the wrapper as much as the kernel."""
     import torch
 
     fn()
@@ -100,6 +116,48 @@ def time_ms(fn, n: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernels: tuple, n: int = 20) -> float:
+    """The device time a call of `fn()` spends in the kernels whose names
+    contain one of `kernels`: torch.profiler's device time over n calls
+    after one warm-up, divided by n (no wrapper or launch gap in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if any(k in e.key for k in kernels))
+    if total <= 0:
+        raise AssertionError(f"torch.profiler saw no device time of {kernels}")
+    return total / 1e3 / n
+
+
+def bound(n_bytes: float, flops: float = 0.0, flop_rate: float = 0.0) -> tuple:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate (H100 SXM
+    published peaks), with which of the two sets it."""
+    t_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
+    t_ops = flops / flop_rate * 1e3 if flops else 0.0
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def winograd_bound(B: int, H: int, W: int, ci: int, co: int) -> tuple:
+    """A Winograd F(2,3) layer at the layer's own Ci and Co (not the
+    kernel's padded ones): 16 positions x 2x2 tiles x Ci x Co products,
+    2 operations each, three times over at the TF32 tensor-core peak,
+    since three TF32 products (3xTF32) are the price of float32 accuracy
+    on the TF32 tensor cores; bytes: x read and y written once, U_hi,
+    U_lo and the bias read once."""
+    tiles = B * -(-H // 2) * -(-W // 2)
+    flops = 3 * 2 * 16 * tiles * ci * co
+    n_bytes = 4 * (B * H * W * (ci + co) + 2 * 16 * ci * co + co)
+    return bound(n_bytes, flops, H100_TF32_FLOPS)
 
 
 def phase_env(torch) -> None:
@@ -135,16 +193,67 @@ def phase_build() -> float:
     return secs
 
 
-def phase_kernels(torch, dev, unet_vars, segs) -> dict:
-    from cell_image_analysis_tpu.utils.synthetic import make_frame_instances
+def stage_a_buckets(torch, segment_fn, segs, greens, candidate_kwargs) -> dict:
+    """A path's stage A on the 16 frames, as `score_frames_fused` runs it:
+    the candidates' crops (N, 192, 192), heights and widths (N,) and the
+    size buckets [(ids, cap, ns_cap)]."""
+    from cell_image_analysis_tpu_torch.pipeline.scoring import _stage_a, size_buckets
+
+    with torch.inference_mode():
+        cand, _ = _stage_a(segment_fn, segs, greens, candidate_kwargs)
+    B, ccap, full_cap = cand.crops.shape[:3]
+    crops = cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous()
+    heights, widths = cand.heights.reshape(-1).int(), cand.widths.reshape(-1).int()
+    buckets = size_buckets(heights, widths, cand.valid.reshape(-1), (64, 96), full_cap)
+    return dict(crops=crops, heights=heights, widths=widths, buckets=buckets)
+
+
+def _clahe_check(torch, crops, ids, hs, ws, cap, ns_cap, what: str) -> dict:
+    """The fused CLAHE kernel bit-equal to its plain version on one bucket,
+    its device time, the event-timed wrapper call, the plain version's
+    time and its bound."""
+    from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, clahe_cells_plain
+
+    idx = ids.long()
+
+    def plain():
+        return clahe_cells_plain(crops[idx][:, :cap, :cap], hs[idx], ws[idx], ns_cap=ns_cap)
+
+    ref = plain()
+    got = clahe_bucket(crops, ids, hs, ws, cap, ns_cap=ns_cap)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref) or bool(torch.isnan(got).any()):
+        raise AssertionError(f"clahe_cells {what}: {int((got != ref).sum())} values differ")
+    ms = device_ms(lambda: clahe_bucket(crops, ids, hs, ws, cap, ns_cap=ns_cap),
+                   ("clahe_cells_kernel",))
+    t_k = time_ms(lambda: clahe_bucket(crops, ids, hs, ws, cap, ns_cap=ns_cap))
+    t_p = time_ms(plain, n=3)
+    C = ids.numel()
+    n_bytes = 4 * (float((hs[idx].long() * ws[idx].long()).sum()) + C * cap * cap + 3 * C)
+    b_ms, _ = bound(n_bytes)
+    log(f"[2] clahe_cells {what}, {C} cells cap {cap} ns_cap {ns_cap}: bit-equal; kernel "
+        f"device {ms:.4f} ms, wrapper call {t_k:.4f} ms; bound {b_ms * 1e3:.2f} us "
+        f"({n_bytes / 1e6:.2f} MB), {100 * b_ms / ms:.1f}% of it; plain {t_p:.3f} ms")
+    return dict(ms=ms, event_ms=t_k, plain_ms=t_p, bound_ms=b_ms)
+
+
+def _clahe_buckets(torch, path: dict, what: str) -> dict:
+    """`_clahe_check` on each non-empty bucket of a path, summed."""
+    row = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for ids, cap, ns_cap in path["buckets"]:
+        if ids.numel():
+            r = _clahe_check(torch, path["crops"], ids.int(), path["heights"], path["widths"],
+                             cap, ns_cap, f"{what} bucket")
+            row = {k: row[k] + r[k] for k in row}
+    log(f"[2] clahe_cells, the {what}'s buckets: kernel device {row['ms']:.4f} ms, bound "
+        f"{row['bound_ms'] * 1e3:.2f} us, plain {row['plain_ms']:.3f} ms")
+    return row
+
+
+def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
     from cell_image_analysis_tpu_torch.ops.cc import cc_min_labels_plain
-    from cell_image_analysis_tpu_torch.ops.clahe import (
-        clahe_core_plain,
-        clahe_prepare,
-    )
     from cell_image_analysis_tpu_torch.ops.cuda.cc import cc_min_labels_cuda
-    from cell_image_analysis_tpu_torch.ops.cuda.clahe_kernel import clahe_core_cuda
     from cell_image_analysis_tpu_torch.ops.cuda.segsum import segment_sums_cuda
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
     from cell_image_analysis_tpu_torch.ops.runs import run_moment_table
@@ -159,7 +268,9 @@ def phase_kernels(torch, dev, unet_vars, segs) -> dict:
     res = {}
 
     # Winograd conv, the committed U-Net weights of all 13 layers at main-path shapes
-    err_w, ms_w, plain_w, all_k, all_p = 0.0, 0.0, 0.0, 0.0, 0.0
+    err_w, all_k, all_p = 0.0, 0.0, 0.0
+    row = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    largest = (0.0, "operations")   # the row's bound_by: that of its largest layer bound
     for name, (B, H, W, ci, co) in WINO_LAYERS.items():
         Wt = torch.tensor(unet_vars["params"][name]["kernel"], device=dev)
         bias = torch.tensor(unet_vars["params"][name]["bias"], device=dev)
@@ -180,53 +291,62 @@ def phase_kernels(torch, dev, unet_vars, segs) -> dict:
             raise AssertionError(f"winograd {name}: relative error {rel:.3e} >= 1e-5")
         err_w, all_k, all_p = max(err_w, abs_err), all_k + t_k, all_p + t_p
         if name in WINO_ROW:
-            ms_w, plain_w = ms_w + t_k, plain_w + t_p
+            d_k = device_ms(lambda: winograd_conv3x3_cuda(xp, *ops), ("winograd_kernel",), n=5)
+            b_ms, b_by = winograd_bound(B, H, W, ci, co)
+            largest = max(largest, (b_ms, b_by))
+            # the plain version is one cuDNN fp32 call, the library's
+            t_l = time_ms(lambda: torch.nn.functional.conv2d(
+                x.permute(0, 3, 1, 2), Wt.permute(3, 2, 0, 1), bias, padding=1))
+            log(f"[2] winograd {name}: kernel device {d_k:.3f} ms; bound {b_ms:.3f} ms "
+                f"({b_by}), {100 * b_ms / d_k:.1f}% of it; F.conv2d alone {t_l:.3f} ms")
+            for k, v in (("ms", d_k), ("event_ms", t_k), ("plain_ms", t_p), ("bound_ms", b_ms),
+                         ("library_ms", t_l)):
+                row[k] += v
         del x, xp, y, ref
     log(f"[2] winograd, all 13 layers: kernel {all_k:.3f} ms, plain {all_p:.3f} ms; "
-        f"{' + '.join(WINO_ROW)}: kernel {ms_w:.3f} ms, plain {plain_w:.3f} ms")
-    res["winograd_conv3x3"] = dict(max_abs_err=err_w, ms=ms_w, plain_ms=plain_w)
+        f"{' + '.join(WINO_ROW)}: kernel device {row['ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms")
+    res["winograd_conv3x3"] = dict(max_abs_err=err_w, bound_by=largest[1], **row)
 
-    # segment sum over one 1024-row frame's run table (true instance labels)
-    _, labels = make_frame_instances(np.random.default_rng(7), size=1024, n_cells=80)
-    labels = torch.tensor(labels.astype(np.int32), device=dev)[None]
-    seg, data, n_seg = run_moment_table(labels, capacity=128, rcap=32)
+    # segment sum over the 16 frames' run table, as stage A of the main path builds it
+    seg, data, n_seg = run_moment_table(main["labels"], capacity=128, rcap=32)
     got = segment_sums_cuda(seg, data, n_seg)
     ref = segment_sums_plain(seg, data, n_seg)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         raise AssertionError("segment_sum: kernel differs from index_add_")
+    keep = (seg >= 0) & (seg < n_seg)
+    seg_k, data_k = seg[keep].long(), data[keep]
+    out = torch.zeros((n_seg, data.shape[1]), dtype=torch.int64, device=dev)
+    t_d = device_ms(lambda: segment_sums_cuda(seg, data, n_seg), ("segment_sum_kernel",))
     t_k = time_ms(lambda: segment_sums_cuda(seg, data, n_seg))
     t_p = time_ms(lambda: segment_sums_plain(seg, data, n_seg))
+    t_l = time_ms(lambda: out.index_add_(0, seg_k, data_k))
+    b_ms, b_by = bound(seg.numel() * 4 + data.numel() * 8 + n_seg * data.shape[1] * 8)
     log(f"[2] segment_sum {tuple(data.shape)} -> ({n_seg}, 6), "
-        f"{int((ref[:, 0] > 0).sum())} labels: equal; kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
-    res["segment_sum"] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p)
+        f"{int((ref[:, 0] > 0).sum())} labels: equal; kernel device {t_d:.4f} ms, wrapper "
+        f"call {t_k:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), {100 * b_ms / t_d:.1f}% of "
+        f"it; plain {t_p:.3f} ms, index_add_ alone {t_l:.3f} ms")
+    res["segment_sum"] = dict(max_abs_err=0.0, ms=t_d, event_ms=t_k, plain_ms=t_p,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
 
-    # CLAHE core on a 32-cell chunk per bucket capacity
+    # CLAHE: 32 random cells at each bucket capacity, then the main path's buckets
     rng = np.random.default_rng(3)
-    ms_c, plain_c = 0.0, 0.0
     for cap, ns_cap in CLAHE_CAPS:
         lo_side = 16 if ns_cap == 12 else 13
         hs = rng.integers(lo_side, cap + 1, size=32).astype(np.int32)
         ws = rng.integers(lo_side, cap + 1, size=32).astype(np.int32)
         crops = np.round(rng.uniform(80, 3000, size=(32, cap, cap))).astype(np.float32)
-        prep = clahe_prepare(torch.tensor(crops, device=dev), torch.tensor(hs, device=dev),
-                             torch.tensor(ws, device=dev), ns_cap=ns_cap)
-        core = prep[:7]
-        got = clahe_core_cuda(*core, ns_cap * ns_cap)
-        ref = clahe_core_plain(*core, ns_cap * ns_cap)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            n_bad = int((got != ref).sum())
-            raise AssertionError(f"clahe_core cap {cap}: {n_bad} values differ")
-        t_k = time_ms(lambda: clahe_core_cuda(*core, ns_cap * ns_cap))
-        t_p = time_ms(lambda: clahe_core_plain(*core, ns_cap * ns_cap))
-        log(f"[2] clahe_core 32 cells cap {cap} ns_cap {ns_cap}: bit-equal; "
-            f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
-        ms_c, plain_c = ms_c + t_k, plain_c + t_p
-    res["clahe_core"] = dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c)
+        t = [torch.tensor(a, device=dev) for a in (crops, hs, ws)]
+        _clahe_check(torch, t[0], torch.arange(32, dtype=torch.int32, device=dev), t[1], t[2],
+                     cap, ns_cap, "32 random cells")
+    row = _clahe_buckets(torch, main, "main path")
+    thr = _clahe_buckets(torch, thresh, "threshold path")
+    res["clahe_cells"] = dict(max_abs_err=0.0, bound_by="bytes", library_ms=None, **row,
+                              threshold_ms=thr["ms"], threshold_bound_ms=thr["bound_ms"])
 
     # CC labels on the 16 frames' threshold masks (the threshold path's input)
-    masks = threshold_mask(segs)
+    masks = threshold_mask(main["segs"])
     log(f"[2] cc_min_labels input: {tuple(masks.shape)} masks, "
         f"{float(masks.float().mean()):.4f} foreground")
     for conn in (1, 2):
@@ -237,12 +357,17 @@ def phase_kernels(torch, dev, unet_vars, segs) -> dict:
             n_bad = int((got != ref).sum())
             raise AssertionError(f"cc_min_labels connectivity {conn}: {n_bad} labels differ")
         err = float((got - ref).abs().max())
+        t_d = device_ms(lambda: cc_min_labels_cuda(masks, conn), ("cc_init", "cc_union",
+                                                                  "cc_flatten"))
         t_k = time_ms(lambda: cc_min_labels_cuda(masks, conn))
         t_p = time_ms(lambda: cc_min_labels_plain(masks, conn), n=3)
-        log(f"[2] cc_min_labels connectivity {conn}: equal; kernel {t_k:.3f} ms, "
-            f"plain sweeps {t_p:.3f} ms")
+        b_ms, b_by = bound(masks.numel() * (1 + 4))
+        log(f"[2] cc_min_labels connectivity {conn}: equal; kernels device {t_d:.4f} ms, "
+            f"wrapper call {t_k:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), "
+            f"{100 * b_ms / t_d:.1f}% of it; plain sweeps {t_p:.3f} ms")
         if conn == 1:   # the connectivity of the main path
-            res["cc_min_labels"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p)
+            res["cc_min_labels"] = dict(max_abs_err=err, ms=t_d, event_ms=t_k, plain_ms=t_p,
+                                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del got, ref
     return res
 
@@ -283,7 +408,7 @@ def _check_result(scores: dict, stats: dict, n_frames: int) -> int:
 def make_frames(torch, dev) -> tuple:
     """The bench's 16 frames (utils/bench._make_frames(16, 1024, 80)):
     (seg channels, green channels), each (16, 1024, 1024) on the card."""
-    from cell_image_analysis_tpu.utils.synthetic import make_frame
+    from cell_image_analysis_tpu_torch.utils.synthetic import make_frame
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(7)
@@ -296,7 +421,7 @@ def make_frames(torch, dev) -> tuple:
 def _kernel_modules():
     from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum, winograd
 
-    return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_core": clahe_kernel,
+    return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_cells": clahe_kernel,
             "cc_min_labels": cc}
 
 
@@ -317,7 +442,8 @@ def _timed(torch, fn):
     return out, time.perf_counter() - t
 
 
-def phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens) -> tuple:
+def phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens,
+                    n_buckets: int) -> tuple:
     from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params
     from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
     from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
@@ -346,9 +472,13 @@ def phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens) -> tu
         f"({n_frames / t_run:.2f} frames/s)")
     if bool(backend.overflow.any()):
         raise AssertionError("a segmentation overflow flag is set on the smoke frames")
-    missing = [k for k in ("winograd_conv3x3", "segment_sum", "clahe_core") if launches[k] <= 0]
+    missing = [k for k in ("winograd_conv3x3", "segment_sum", "clahe_cells") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels of the path were not launched: {missing}")
+    if launches["clahe_cells"] > n_buckets:
+        raise AssertionError(f"[3] {launches['clahe_cells']} CLAHE launches for {n_buckets} "
+                             "non-empty size buckets")
+    log(f"[3] CLAHE: {launches['clahe_cells']} launches, {n_buckets} non-empty size buckets")
     return launches, (scores, stats), backend.fn
 
 
@@ -369,7 +499,7 @@ def _screen_threshold(torch, d, segs, greens, params_model, rcap=32, label_route
 
 
 def phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a) -> None:
-    from cell_image_analysis_tpu.utils.synthetic import make_frame
+    from cell_image_analysis_tpu_torch.utils.synthetic import make_frame
     from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params
     from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
     from cell_image_analysis_tpu_torch.models.stardist import predict_instances
@@ -456,11 +586,13 @@ def phase_threshold(torch, dev, segs, greens, params_model) -> dict:
         raise AssertionError("[5] (a) the mask route overflowed at rcap 32")
     if twin_c.calls != 1:
         raise AssertionError("[5] (c) the fallback did not fire at rcap 8")
-    missing = [k for k in ("segment_sum", "clahe_core") if launches_a[k] <= 0]
-    missing += [f"(b) {k}" for k in ("cc_min_labels", "segment_sum", "clahe_core")
+    missing = [k for k in ("segment_sum", "clahe_cells") if launches_a[k] <= 0]
+    missing += [f"(b) {k}" for k in ("cc_min_labels", "segment_sum", "clahe_cells")
                 if launches_b[k] <= 0]
     if missing:
         raise AssertionError(f"[5] kernels of the threshold path were not launched: {missing}")
+    if max(launches_a["clahe_cells"], launches_b["clahe_cells"]) > N_BUCKETS:
+        raise AssertionError(f"[5] more CLAHE launches than the {N_BUCKETS} size buckets")
     # the fallback re-runs the whole batch through the label route once
     if launches_c["cc_min_labels"] != launches_b["cc_min_labels"]:
         raise AssertionError(f"[5] (c) made {launches_c['cc_min_labels']} CC calls, the label "
@@ -472,7 +604,7 @@ def phase_threshold(torch, dev, segs, greens, params_model) -> dict:
         f"{report['near_threshold']}")
     _assert_same(res_c, res_b, "(c) vs (b)")
     log("[5] (c) equals (b) exactly")
-    return launches_b
+    return launches_a, launches_b
 
 
 def _clipped_cells(torch, model, seg_cfg, twin_cfg, segs) -> set:
@@ -565,7 +697,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs only on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from cell_image_analysis_tpu.config import SegConfig
+    from cell_image_analysis_tpu_torch.config import SegConfig
     from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params, load_unet_variables
 
     dev = torch.device("cuda", 0)
@@ -577,20 +709,36 @@ def main() -> int:
         phase_env(torch)
     if 1 in phases:
         phase_build()
-    segs = greens = None
+    segs = greens = main_a = None
     if phases & {2, 3, 5, 6}:
         segs, greens = make_frames(torch, dev)
-    kernels = phase_kernels(torch, dev, unet_vars, segs) if 2 in phases else {}
+    if phases & {2, 3}:
+        from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+
+        stardist = StarDistBackend(unet_vars, seg_cfg, device=dev)
+        main_a = stage_a_buckets(torch, stardist, segs, greens, stage_a)
+        main_a.update(labels=stardist(segs)[0], segs=segs)   # segment sum's input
+    kernels = {}
+    if 2 in phases:
+        from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
+
+        thresh_a = stage_a_buckets(torch, ThresholdBackend(), segs, greens, dict(
+            {k: v for k, v in THRESH_KW.items() if k not in ("chunk", "caps")}, rcap=32))
+        kernels = phase_kernels(torch, dev, unet_vars, main_a, thresh_a)
+        del thresh_a
     launches, main_result, backend = {}, None, None
     if 3 in phases:
+        n_buckets = sum(1 for ids, _, _ in main_a["buckets"] if ids.numel())
         launches, main_result, backend = phase_main_path(torch, dev, unet_vars, seg_cfg,
-                                                         stage_a, segs, greens)
+                                                         stage_a, segs, greens, n_buckets)
     if 4 in phases:
         phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a)
     params_model = load_scoring_params(device=dev)
     if 5 in phases:
-        launches["cc_min_labels"] = phase_threshold(torch, dev, segs, greens,
-                                                    params_model)["cc_min_labels"]
+        launches_a, launches_b = phase_threshold(torch, dev, segs, greens, params_model)
+        launches["cc_min_labels"] = launches_b["cc_min_labels"]
+        if 2 in phases:
+            kernels["clahe_cells"]["threshold_launches"] = launches_a["clahe_cells"]
     if 6 in phases and 3 in phases:
         phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
                    main_result)
@@ -603,13 +751,20 @@ def main() -> int:
                              "cell_image_analysis_tpu/ops/pallas/winograd.py:184"),
         "segment_sum": ("csrc/segment_sum.cu",
                         "cell_image_analysis_tpu/ops/pallas/segsum.py:49"),
-        "clahe_core": ("csrc/clahe_core.cu",
-                       "cell_image_analysis_tpu/ops/pallas/clahe_kernel.py:184"),
+        "clahe_cells": ("csrc/clahe_cells.cu",
+                        "cell_image_analysis_tpu/ops/pallas/clahe_kernel.py:184"),
         "cc_min_labels": ("csrc/cc_min_labels.cu",
                           "cell_image_analysis_tpu/ops/pallas/cc_kernel.py:80"),
     }
+    # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
+    # phase 5 (b), the label route); `launches_per_batch`: the kernel
+    # launches on the card they make (a CC call is three); `ms` is the
+    # kernel's device time (torch.profiler), `event_ms` one event-timed
+    # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
     rows = [dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=rep,
-                 launches=launches[name], **kernels[name])
+                 launches=launches[name],
+                 launches_per_batch=launches[name] * (3 if name == "cc_min_labels" else 1),
+                 **kernels[name])
             for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))
     print(smi_line())

@@ -2,7 +2,7 @@
 """Where the PyTorch port's main path spends its time, on one GPU.
 
     python3 scripts/profile_torch_port.py [--backend stardist|threshold] [--frames 16]
-                                          [--size 1024] [--trace PATH]
+                                          [--size 1024] [--trace PATH] [--src DIR]
 
 Screens the bench's synthetic frames (seed 7, 80 cells per 1024^2 frame)
 through `score_frames_fused` at the bench's settings for the backend
@@ -15,10 +15,21 @@ once to warm up, then:
    regionprops, QC, crops).  Threshold: `threshold_mask` (order
    statistics, opening), stage A on the mask (run table, hook CC, run
    moments, QC, crops); and, outside the total, stage A of the exact
-   label route (CC kernel, pixel regionprops, QC, crops);
+   label route (CC kernel, pixel regionprops, QC, crops).  Then the
+   bucket loop is split into its three parts: in three more full runs,
+   every call that `score_frames_fused` makes to a CLAHE function, to
+   `resize_cells` and to `score_cells` (the names its module imports) is
+   wrapped in a synchronized host clock, and each part's sum is kept
+   (best of 3), with the number of CLAHE calls;
 2. traces one full run with `torch.profiler` and prints the device time
    by kernel, the summed device time against the wall time (the device's
    busy share), and with `--trace` writes the Chrome trace there.
+
+`--frames-npy PATH` keeps the frames between runs.  `--src DIR` profiles
+the `cell_image_analysis_tpu_torch` package of another checkout (an
+earlier commit unpacked with `git archive`), so that two versions can be
+timed in one run on one card; the frames and the segmentation settings
+always come from this script's own checkout.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -26,6 +37,7 @@ Needs a CUDA device; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import subprocess
 import sys
@@ -34,7 +46,55 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+
+
+def _own_module(name: str, relpath: str):
+    """A self-contained module of this checkout, loaded by path (whatever
+    package `--src` puts first on the import path)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, relpath))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod             # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bucket_loop_split(torch, run, n: int = 3) -> dict:
+    """The bucket loop's parts over n runs of `run()`: each CLAHE, resize
+    and scoring call of `score_frames_fused` timed between two
+    synchronizations, summed by part a run; the best run of each part
+    (ms), and the CLAHE calls of a run."""
+    from cell_image_analysis_tpu_torch.pipeline import scoring
+
+    parts = {name: "CLAHE" for name in vars(scoring) if name.startswith("clahe")}
+    parts.update(resize_cells="resize", score_cells="scoring")
+    originals = {name: getattr(scoring, name) for name in parts}
+    acc = {}
+
+    def wrap(name):
+        def timed_call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kw)
+            torch.cuda.synchronize()
+            part = parts[name]
+            acc[part] = acc.get(part, 0.0) + (time.perf_counter() - t0) * 1e3
+            acc[part + " calls"] = acc.get(part + " calls", 0) + 1
+            return out
+        return timed_call
+
+    best = {}
+    try:
+        for name in parts:
+            setattr(scoring, name, wrap(name))
+        for _ in range(n):
+            acc.clear()
+            run()
+            best = {k: min(v, best.get(k, v)) for k, v in acc.items()}
+    finally:
+        for name, fn in originals.items():
+            setattr(scoring, name, fn)
+    return {"CLAHE": best["CLAHE"], "resize": best["resize"], "scoring": best["scoring"],
+            "launches of CLAHE": best["CLAHE calls"]}
 
 
 def main() -> int:
@@ -44,15 +104,21 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--cells", type=int, default=80)
     ap.add_argument("--trace", help="write the torch.profiler Chrome trace to this path")
+    ap.add_argument("--frames-npy", help="reuse the frames saved at this path (made and saved "
+                                         "there when it does not exist)")
+    ap.add_argument("--src", default=REPO,
+                    help="checkout whose cell_image_analysis_tpu_torch is profiled")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
 
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
         return 1
-    from cell_image_analysis_tpu.config import SegConfig
-    from cell_image_analysis_tpu.utils.synthetic import make_frame
+    SegConfig = _own_module("_port_config", "cell_image_analysis_tpu_torch/config.py").SegConfig
+    make_frame = _own_module("_port_synthetic",
+                             "cell_image_analysis_tpu_torch/utils/synthetic.py").make_frame
     from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params, load_unet_variables
     from cell_image_analysis_tpu_torch.models.segmentation import (
         StarDistBackend,
@@ -71,10 +137,18 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
+    import cell_image_analysis_tpu_torch as pkg
+
+    print(f"package: {os.path.dirname(pkg.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(7)
-    frames = np.stack([make_frame(rng, size=args.size, n_cells=args.cells)
-                       for _ in range(args.frames)])
+    if args.frames_npy and os.path.exists(args.frames_npy):
+        frames = np.load(args.frames_npy)
+    else:
+        rng = np.random.default_rng(7)
+        frames = np.stack([make_frame(rng, size=args.size, n_cells=args.cells)
+                           for _ in range(args.frames)])
+        if args.frames_npy:
+            np.save(args.frames_npy, frames)
     segs = torch.tensor(frames[..., 2].astype(np.float32), device=dev)
     greens = torch.tensor(frames[..., 1].astype(np.float32), device=dev)
     model, params = load_scoring_params(device=dev)
@@ -119,12 +193,17 @@ def main() -> int:
             label_kw.pop("rcap")
             _, t_la = timed(lambda: extract_candidates(labels, greens, **label_kw))
     (scores, stats), t_full = timed(full)
+    split = bucket_loop_split(torch, full)
     n = len(stats["area"])
     print(f"{args.backend}: batch of {args.frames} x {args.size}^2, {n} cells (best of 3, ms):")
     stages += [("CLAHE/resize/score loop + host", t_full - t_seg - t_a), ("total", t_full)]
     for name, t in stages:
         print(f"  {name:32s} {t:9.2f}  ({100 * t / t_full:5.1f}%)")
     print(f"  cells/s {n / t_full * 1e3:.1f}")
+    print(f"  bucket loop by part, each call synchronized "
+          f"({split.pop('launches of CLAHE')} CLAHE launches):")
+    for name, t in split.items():
+        print(f"    {name:30s} {t:9.2f}")
     if args.backend == "threshold":
         print(f"  exact label route, outside the total: threshold_segment {t_lab:.2f} ms "
               f"(threshold mask + CC kernel + compaction), stage A {t_la:.2f} ms "

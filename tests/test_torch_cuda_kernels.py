@@ -78,32 +78,86 @@ def test_segment_sum_kernel_matches_plain(dev):
         segment_sums(seg, data.float(), 37)
 
 
-@pytest.mark.parametrize("cap,ns_cap,sizes", [
-    (64, 12, [(64, 64), (17, 23), (40, 12)]),
-    (96, 16, [(96, 41), (15, 90), (50, 13)]),
-    (192, 16, [(97, 41), (192, 192), (11, 64)]),
-])
-def test_clahe_kernel_bit_equal_to_cpu(dev, cap, ns_cap, sizes):
-    from cell_image_analysis_tpu_torch.ops.clahe import clahe_cells
+def _clahe_inputs(dev, cap, ns_cap, n_cells, seed, full_cap=192):
+    """n_cells crops of random sides up to cap (ns_cap 12: no side of
+    13-15), scattered over a larger (N, full_cap, full_cap) crop tensor
+    with garbage around them, as stage A leaves them."""
+    rng = np.random.default_rng(seed)
+    sides = rng.integers(1, cap + 1, size=(n_cells, 2))
+    if ns_cap == 12:
+        sides = np.where((sides >= 13) & (sides <= 15), 16, sides)
+    crops, hs, ws = padded_crops(rng, [tuple(s) for s in sides], full_cap)
+    N = n_cells + n_cells // 2 + 3
+    order = rng.permutation(N)[:n_cells]
+    big = np.full((N, full_cap, full_cap), 3e8, np.float32)
+    big[order] = crops
+    heights, widths = np.ones(N, np.int32), np.ones(N, np.int32)
+    heights[order], widths[order] = hs, ws
+    return [torch.from_numpy(a).to(dev) for a in (big, order.astype(np.int32), heights, widths)]
+
+
+@pytest.mark.parametrize("n_cells", [1, 32, 131, 132, 800])
+@pytest.mark.parametrize("cap,ns_cap", [(64, 12), (96, 12), (192, 16)])
+def test_clahe_kernel_bit_equal_to_plain(dev, cap, ns_cap, n_cells):
+    """4 blocks a cell below one cell an SM (132 on an H100), else 2."""
+    from cell_image_analysis_tpu_torch.ops.clahe import clahe_cells_plain
     from cell_image_analysis_tpu_torch.ops.cuda import clahe_kernel as launcher
 
-    crops, hs, ws = padded_crops(np.random.default_rng(cap), sizes, cap)
-    args = [torch.from_numpy(a) for a in (crops, hs, ws)]
-    ref = clahe_cells(*args, ns_cap=ns_cap)
+    crops, ids, hs, ws = _clahe_inputs(dev, cap, ns_cap, n_cells, cap + n_cells)
+    idx = ids.long()
+    ref = clahe_cells_plain(crops[idx][:, :cap, :cap], hs[idx], ws[idx], ns_cap=ns_cap)
     before = launcher.LAUNCHES
-    got = clahe_cells(*(a.to(dev) for a in args), ns_cap=ns_cap)
+    got = launcher.clahe_cells_cuda(crops, ids, hs, ws, cap, ns_cap=ns_cap)
+    assert launcher.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (n_cells, cap, cap) and not bool(torch.isnan(got).any())
+    assert torch.equal(got, ref)
+
+
+def test_clahe_bucket_reads_crops_in_place(dev):
+    from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, clahe_cells
+    from cell_image_analysis_tpu_torch.ops.cuda import clahe_kernel as launcher
+
+    crops, ids, hs, ws = _clahe_inputs(dev, 96, 12, 40, 5)
+    before_crops = crops.clone()
+    idx = ids.long()
+    ref = clahe_cells(crops[idx][:, :96, :96].cpu(), hs[idx].cpu(), ws[idx].cpu(), ns_cap=12)
+    before = launcher.LAUNCHES
+    got = clahe_bucket(crops, ids, hs, ws, 96, ns_cap=12)
     assert launcher.LAUNCHES == before + 1
     assert torch.equal(got.cpu(), ref)
+    assert torch.equal(crops, before_crops)
+    # clahe_cells on a CUDA tensor is the same kernel over all its cells
+    again = clahe_cells(crops[idx][:, :96, :96], hs[idx], ws[idx], ns_cap=12)
+    assert launcher.LAUNCHES == before + 2
+    assert torch.equal(again.cpu(), ref)
 
 
-def test_clahe_kernel_rejects_oversized_tile_grid(dev):
-    from cell_image_analysis_tpu_torch.ops.cuda.clahe_kernel import clahe_core_cuda
+def test_clahe_kernel_rejects_what_it_does_not_take(dev):
+    from cell_image_analysis_tpu_torch.ops.cuda.clahe_kernel import clahe_cells_cuda
 
-    z = torch.zeros((1, 512), dtype=torch.int32, device=dev)
-    z4 = torch.zeros((1, 512, 4), dtype=torch.int32, device=dev)
-    one = torch.ones(1, dtype=torch.int32, device=dev)
+    crops = torch.rand((4, 96, 96), device=dev) * 100
+    ids = torch.arange(4, dtype=torch.int32, device=dev)
+    hw = torch.full((4,), 40, dtype=torch.int32, device=dev)
+    clahe_cells_cuda(crops, ids, hw, hw, 64, ns_cap=12)
+    for bad in (dict(crops=crops.double()), dict(ids=ids.long()), dict(hs=hw.float())):
+        args = dict(crops=crops, ids=ids, hs=hw)
+        args.update(bad)
+        with pytest.raises(TypeError):
+            clahe_cells_cuda(args["crops"], args["ids"], args["hs"], hw, 64, ns_cap=12)
+    for kw in (dict(ns_cap=17), dict(cap=97)):
+        with pytest.raises(ValueError):
+            clahe_cells_cuda(crops, ids, hw, hw, **{"cap": 64, "ns_cap": 12, **kw})
     with pytest.raises(ValueError):
-        clahe_core_cuda(z, z, z, z4, z4, one, one, n_tiles=17 * 17)
+        clahe_cells_cuda(crops.transpose(1, 2), ids, hw, hw, 64)        # not contiguous
+    with pytest.raises(ValueError):
+        clahe_cells_cuda(crops.cpu(), ids, hw, hw, 64)
+    # a cell above the bucket's capacity comes out NaN, nothing is written out of bounds
+    hs = hw.clone()
+    hs[2] = 80
+    out = clahe_cells_cuda(crops, ids, hs, hw, 64, ns_cap=12)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[2]).all()) and not bool(torch.isnan(out[[0, 1, 3]]).any())
 
 
 def _cc_masks():

@@ -24,7 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import BENCH_SEG, BENCH_STAGE_A, jax_scoring, torch_threads
+from torch_port_helpers import (
+    BENCH_SEG,
+    BENCH_STAGE_A,
+    JAX_BENCH_SEG,
+    jax_scoring,
+    torch_threads,
+)
 
 from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params, load_unet_variables
 from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend, ThresholdBackend
@@ -37,6 +43,8 @@ torch_threads()
 
 _SEG = dataclasses.replace(BENCH_SEG, nms_max_pairs=BENCH_SEG.max_candidates ** 2)
 _TWIN_SEG = dataclasses.replace(_SEG, raster_mode="scatter")
+_JAX_SEG = dataclasses.replace(JAX_BENCH_SEG, nms_max_pairs=BENCH_SEG.max_candidates ** 2)
+_JAX_TWIN_SEG = dataclasses.replace(_JAX_SEG, raster_mode="scatter")
 # utils/bench.py:250-253, the threshold backend's stage A
 THRESH_STAGE_A = dict(label_capacity=4096, cell_capacity=128, fg_fraction=0.12)
 
@@ -50,8 +58,8 @@ def _frames():
 
 
 def _port(segs, greens, seg_cfg, fallback=False):
-    backend = StarDistBackend(load_unet_variables(), seg_cfg)
-    model, params = load_scoring_params()
+    backend = StarDistBackend(load_unet_variables(), seg_cfg, device="cpu")
+    model, params = load_scoring_params(device="cpu")
     out = score_frames_fused(model, params, torch.from_numpy(segs), torch.from_numpy(greens),
                              backend, chunk=32, caps=(64, 96),
                              fallback_segment_fn=backend.exact_twin() if fallback else None,
@@ -95,10 +103,10 @@ def test_score_frames_fused_matches_jax():
     unet_j = load_synthetic_unet_variables()
     model_j, params_j = jax_scoring()
     ref = jax_fused(model_j, params_j, jnp.asarray(segs), jnp.asarray(greens),
-                    JaxBackend(unet_j, _SEG, runs_props=True),
+                    JaxBackend(unet_j, _JAX_SEG, runs_props=True),
                     chunk=32, caps=(64, 96), **BENCH_STAGE_A)
     got, labels_t, params_t = _port(segs, greens, _SEG)
-    report = compare_screens(ref, got, _jax_flips(segs, unet_j, _SEG, labels_t),
+    report = compare_screens(ref, got, _jax_flips(segs, unet_j, _JAX_SEG, labels_t),
                              float(params_t.ensemble_mse_threshold))
     print(report, {k: v for k, v in got[0].items() if k.endswith("rate")})
     assert report["n_cells"] >= 20
@@ -127,12 +135,12 @@ def test_overflow_falls_back_to_exact_twin():
     with warnings.catch_warnings():
         warnings.simplefilter("error", RuntimeWarning)   # the twin must not overflow
         ref = jax_fused(model_j, params_j, jnp.asarray(segs), jnp.asarray(greens),
-                        JaxBackend(unet_j, BENCH_SEG, runs_props=True), chunk=32,
+                        JaxBackend(unet_j, JAX_BENCH_SEG, runs_props=True), chunk=32,
                         caps=(64, 96),
-                        fallback_segment_fn=JaxBackend(unet_j, _TWIN_SEG, runs_props=False),
+                        fallback_segment_fn=JaxBackend(unet_j, _JAX_TWIN_SEG, runs_props=False),
                         **BENCH_STAGE_A)
         got, labels_t, params_t = _port(segs, greens, BENCH_SEG, fallback=True)
-    report = compare_screens(ref, got, _jax_flips(segs, unet_j, _TWIN_SEG, labels_t),
+    report = compare_screens(ref, got, _jax_flips(segs, unet_j, _JAX_TWIN_SEG, labels_t),
                              float(params_t.ensemble_mse_threshold))
     print(report)
     assert report["n_cells"] >= 20
@@ -161,7 +169,7 @@ def test_threshold_score_frames_fused_matches_jax(rcap):
 
     segs, greens = _frames()
     model_j, params_j = jax_scoring()
-    model, params = load_scoring_params()
+    model, params = load_scoring_params(device="cpu")
     kw = dict(chunk=32, caps=(64, 96), rcap=rcap, **THRESH_STAGE_A)
     ref = jax_fused(model_j, params_j, jnp.asarray(segs), jnp.asarray(greens),
                     _threshold_mask_fn, fallback_segment_fn=jax_segment, **kw)

@@ -33,7 +33,7 @@ def test_score_cells_matches_jax():
     X = _cells()
     model_j, params_j = jax_scoring()
     sj = jax_score(model_j, params_j, jnp.asarray(X))
-    model_t, params_t = load_scoring_params()
+    model_t, params_t = load_scoring_params(device="cpu")
     st = score_cells(model_t, params_t, torch.from_numpy(X))
     for f in ("conservative_predictions", "moderate_predictions", "ensemble_predictions",
               "fft_predictions"):

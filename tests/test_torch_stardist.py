@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import BENCH_SEG, torch_threads
+from torch_port_helpers import BENCH_SEG, JAX_BENCH_SEG, torch_threads
 
 from cell_image_analysis_tpu_torch.io.artifacts import load_unet_variables
 from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
@@ -33,8 +33,8 @@ def test_predict_instances_matches_jax(seed, size, n_cells):
     from cell_image_analysis_tpu.utils.bench import load_synthetic_unet_variables
 
     seg = _frame(seed, size, n_cells)[..., 2].astype(np.float32)
-    labels_j, d_j = jax_predict(jnp.asarray(seg), load_synthetic_unet_variables(), BENCH_SEG)
-    backend = StarDistBackend(load_unet_variables(), BENCH_SEG)
+    labels_j, d_j = jax_predict(jnp.asarray(seg), load_synthetic_unet_variables(), JAX_BENCH_SEG)
+    backend = StarDistBackend(load_unet_variables(), BENCH_SEG, device="cpu")
     with torch.no_grad():
         labels_t, d_t = predict_instances(torch.from_numpy(seg)[None], backend.model, BENCH_SEG)
     assert labels_t.shape == (1, size, size)
@@ -112,7 +112,7 @@ def test_rasterize_scatter_matches_jax(patch, raster_cap):
 
 
 def test_exact_twin_config():
-    backend = StarDistBackend(load_unet_variables(), BENCH_SEG)
+    backend = StarDistBackend(load_unet_variables(), BENCH_SEG, device="cpu")
     twin = backend.exact_twin()
     assert backend.runs_props and not twin.runs_props
     assert twin.model is backend.model

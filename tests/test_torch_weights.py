@@ -67,7 +67,7 @@ def test_cae_carry_over_matches_flax():
 
 def test_scoring_asset_loads_into_both_packages():
     arrays = scoring_arrays()
-    model_t, params_t = load_scoring_params()
+    model_t, params_t = load_scoring_params(device="cpu")
     _, params_j = jax_scoring()
     for name in ("scaler_center", "scaler_scale", "pca_mean", "pca_components",
                  "ensemble_mse_threshold", "fft_scaler_center", "fft_scaler_scale"):

@@ -12,11 +12,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cell_image_analysis_tpu.config import SegConfig
+from cell_image_analysis_tpu.config import SegConfig as JaxSegConfig
+from cell_image_analysis_tpu_torch.config import SegConfig
 from cell_image_analysis_tpu_torch.io.artifacts import SCORING_PARAMS_PATH
 
-# the screening bench's StarDist settings (utils/bench.py _batch_pipeline)
+# the screening bench's StarDist settings (utils/bench.py _batch_pipeline),
+# as the port's config and as the JAX package's
 BENCH_SEG = SegConfig(max_candidates=256, raster_patch=96, raster_cap=128)
+JAX_BENCH_SEG = JaxSegConfig(max_candidates=256, raster_patch=96, raster_cap=128)
 BENCH_STAGE_A = dict(label_capacity=128, cell_capacity=128, rcap=32)
 
 
@@ -126,3 +129,159 @@ def winograd_3xtf32(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor) -> tor
 
     h, w = x.shape[1:3]
     return winograd_kernel_emulation(pad_input(x), *winograd_operands(W, bias))[:, :h, :w]
+
+
+def _band_of(rank: int, bands: int, h: int, kh: int, ns_h: int):
+    """`band_of` of csrc/clahe_cells.cu: (r0, r1, y0, y1, yb0, yb1)."""
+    per = (ns_h + bands - 1) // bands
+    r0 = min(rank * per, ns_h)
+    r1 = min(r0 + per, ns_h)
+    if r0 >= r1:
+        return 0, 0, 0, 0, 0, 0
+    last = r1 == ns_h
+    y0 = 0 if r0 == 0 else r0 * kh - kh // 2
+    y1 = h if last else r1 * kh - kh // 2
+    yb0 = min(y0, max(0, 2 * h - 1 - ns_h * kh)) if last else y0
+    return r0, r1, y0, y1, yb0, min(r1 * kh, h)
+
+
+def _reflect_np(i: np.ndarray, n: int) -> np.ndarray:
+    over = i - (n - 1)
+    i = np.where(over > 0, n - 1 - over, i)
+    return np.minimum(np.maximum(i, 0), max(n - 1, 0))
+
+
+def _clip_hist_np(hist: np.ndarray, clim: int) -> np.ndarray:
+    """The kernel's `clip_histogram` on one 256-bin histogram."""
+    h = hist.astype(np.int64)
+    n_excess = int(np.maximum(h - clim, 0).sum())
+    h = np.minimum(h, clim)
+    bin_incr = n_excess // 256
+    upper = clim - bin_incr
+    low = h < upper
+    n_excess -= int(low.sum()) * bin_incr
+    h = np.where(low, h + bin_incr, h)
+    mid = (h >= upper) & (h < clim)
+    n_excess += int(np.where(mid, h - clim, 0).sum())
+    h = np.where(mid, clim, h)
+    added = 1
+    while n_excess > 0 and added > 0:
+        step = max(1, 256 // max(n_excess, 1))
+        el = (h < clim) & (np.arange(256) % step == 0)
+        add = el & (np.cumsum(el) <= n_excess)
+        h = h + add
+        added = int(add.sum())
+        n_excess -= added
+    return h
+
+
+def clahe_kernel_emulation(crops: np.ndarray, ids, heights, widths, cap: int, bands: int,
+                           clip_limit: float = 0.02, grid: int = 8, ns_cap: int = 16) -> np.ndarray:
+    """The work split of `csrc/clahe_cells.cu` in numpy on the CPU: for each
+    cell `ids[c]` of the (N, full_cap, full_cap) float32 `crops`, read in
+    place, the kernel's `bands` blocks each reduce min / max / integrality
+    over their own crop rows, combine the partials, quantize and bin only
+    their rows, build only their band's tile histograms and CDF maps, blend
+    their output rows with the row of maps above the band taken from the
+    neighbouring band, and combine per-band min / max partials of the blend
+    for the rescale.  Every access outside a band's rows or maps raises."""
+    f32 = np.float32
+    out = np.zeros((len(ids), cap, cap), f32)
+    for c, i in enumerate(ids):
+        h, w = int(heights[i]), int(widths[i])
+        assert 0 <= h <= cap and 0 <= w <= cap
+        if h == 0 or w == 0:
+            continue
+        crop = crops[i]
+        kh, kw = max(h // grid, 1), max(w // grid, 1)
+        ns_h, ns_w = -(-h // kh), -(-w // kw)
+        assert ns_h <= ns_cap and ns_w <= ns_cap
+        bnds = [_band_of(r, bands, h, kh, ns_h) for r in range(bands)]
+        per = (ns_h + bands - 1) // bands
+
+        # 1. per-band partials of min, max and integrality, then combined
+        lo, hi, int_ok = f32(np.finfo(f32).max), f32(-np.finfo(f32).max), True
+        for (_, _, _, _, yb0, yb1) in bnds:
+            v = crop[yb0:yb1, :w]
+            if v.size:
+                lo, hi = min(lo, v.min()), max(hi, v.max())
+                int_ok &= bool(np.all((v == np.rint(v)) & (v >= 0) & (v < 16777216.0)))
+        rng_ = f32(hi - lo)
+        exact = int_ok and rng_ <= 65535.0 and hi > lo
+        scale = f32(16383) / rng_ if hi > lo else f32(0)
+        D = max(int(min(max(rng_, f32(0)), f32(65535))), 1)
+
+        # 2. bins of each band's own rows
+        bins = []
+        for (_, _, _, _, yb0, yb1) in bnds:
+            v = crop[yb0:yb1, :w]
+            if not hi > lo:
+                q14 = np.zeros(v.shape, np.int64)
+            elif exact:
+                k = np.clip(v - lo, 0, 65535).astype(np.int64)
+                t = 2 * k * 16383 + D
+                q, r = t // (2 * D), t % (2 * D)
+                q14 = q - ((r == 0) & (q % 2 == 1))
+            else:
+                fq = np.rint((v - lo) * scale)
+                q14 = np.clip(fq, -2.0 ** 31, 2.0 ** 31 - 128).astype(np.int64)
+            bins.append(np.clip(q14 // 65, 0, 255))
+
+        def band_bins(r, rows):
+            yb0, yb1 = bnds[r][4:]
+            assert np.all((rows >= yb0) & (rows < yb1)), "a row outside the band's bins"
+            return bins[r][rows - yb0]
+
+        # 3. each band's tile histograms, clipped, as integer CDF maps
+        area = kh * kw
+        clim = max(int(f32(clip_limit) * f32(area)), 1)
+        xv = np.arange(ns_w * kw)
+        maps = []
+        for r, (r0, r1, *_) in enumerate(bnds):
+            m = np.zeros((r1 - r0, ns_w, 256), np.int64)
+            for ty in range(r0, r1):
+                yv = np.arange(ty * kh, (ty + 1) * kh)
+                b = band_bins(r, _reflect_np(yv, h))[:, _reflect_np(xv, w)]
+                for tx in range(ns_w):
+                    hist = np.bincount(b[:, tx * kw:(tx + 1) * kw].ravel(), minlength=256)
+                    cdf = np.cumsum(_clip_hist_np(hist, clim))
+                    m[ty - r0, tx] = np.minimum(cdf * 16383 // area, 16383)
+            maps.append(m)
+
+        # 4. the blend of each band's output rows; the maps above the band
+        # come from its neighbour
+        x = np.arange(w)
+        xp = x + kw // 2
+        ptx, ax = xp // kw, xp % kw
+        mx0, mx1 = np.clip(ptx - 1, 0, ns_w - 1), np.minimum(ptx, ns_w - 1)
+        blends, parts = [], []
+        for r, (r0, r1, y0, y1, _, _) in enumerate(bnds):
+            rows = np.arange(y0, y1)
+            yp = rows + kh // 2
+            pty, ay = yp // kh, yp % kh
+
+            def tile_rows(my):
+                owner = my // per
+                assert np.all((owner == r) | (owner == r - 1)), "maps beyond the neighbour"
+                return np.stack([maps[o][t - o * per] for o, t in zip(owner, my)]) \
+                    if len(my) else np.zeros((0, ns_w, 256), np.int64)
+
+            t0 = tile_rows(np.clip(pty - 1, 0, ns_h - 1))
+            t1 = tile_rows(np.minimum(pty, ns_h - 1))
+            b = band_bins(r, rows)                                    # (rows, w)
+            ri = np.arange(len(rows))[:, None]
+            m00, m01 = t0[ri, mx0, b], t0[ri, mx1, b]
+            m10, m11 = t1[ri, mx0, b], t1[ri, mx1, b]
+            ny0, ny1 = (kh - ay)[:, None], ay[:, None]
+            nx0, nx1 = kw - ax, ax
+            v = (ny0 * (nx0 * m00 + nx1 * m01) + ny1 * (nx0 * m10 + nx1 * m11)) // area
+            blends.append((y0, y1, v))
+            if v.size:
+                parts.append((v.min(), v.max()))
+
+        # 5. min / max from the per-band partials, then the rescale
+        lo2, hi2 = f32(min(p[0] for p in parts)), f32(max(p[1] for p in parts))
+        scale2 = f32(1) / (hi2 - lo2) if hi2 > lo2 else f32(0)
+        for y0, y1, v in blends:
+            out[c, y0:y1, :w] = (v.astype(f32) - lo2) * scale2
+    return out
