@@ -11,8 +11,8 @@ hand-written CUDA kernels (`csrc/`, built by `ops/cuda/_build.py`):
 - every 3x3 conv of the StarDist U-Net -> `csrc/winograd_conv3x3.cu`;
 - the run- and pixel-moment segment sums of stage A -> `csrc/segment_sum.cu`;
 - the CLAHE of a size bucket of cell crops -> `csrc/clahe_cells.cu`;
-- the connected components of the threshold backend's label maps ->
-  `csrc/cc_min_labels.cu`.
+- the connected components of the threshold backend's label maps, the
+  compaction to 1..K included -> `csrc/cc_tile_labels.cu`.
 
 Each kernel's wrapper launches it for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; the CPU tests hold the plain versions

@@ -1,6 +1,7 @@
 """Build `csrc/*.cu` into one shared library and load it with ctypes.
 
-One `nvcc` call compiles every source for `sm_90a` into
+One `nvcc` process a source, all started together, compiles each for
+`sm_90a` into an object file; one more links them into
 `build/torch_kernels/libcia_torch_kernels_<hash>.so` at the repository root
 (listed in .gitignore).  `<hash>` covers the sources' contents, so an edit
 rebuilds and an unchanged tree reuses the library.  The sources have a
@@ -27,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,11 +39,11 @@ _SIGNATURES = {
     "cia_winograd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cia_segment_sum_i64": [_P, _P, _P, _L, _I, _I, _P],
     "cia_clahe_cells": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
-    "cia_cc_min_labels": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "cia_cc_label_components": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB = None
-build_seconds: float | None = None  # wall time of the nvcc call, None if reused
+build_seconds: float | None = None  # wall time of the nvcc calls, None if reused
 
 
 def _sources() -> list[str]:
@@ -77,15 +78,26 @@ def build(verbose: bool = False) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *_sources()]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(_sources(), objs)]
+    steps = [(src, *proc.communicate(), proc.returncode) for src, proc in zip(_sources(), procs)]
+    if all(rc == 0 for *_, rc in steps):
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        steps.append(("link", link.stdout, link.stderr, link.returncode))
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    for src, _, err, rc in steps:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(src)} ({rc}):\n{err}")
+        if verbose:
+            print(err, end="")
     os.replace(tmp, out)
     return out
 

@@ -21,8 +21,13 @@ Phases (any failure exits non-zero before the last line is printed):
    cells at each bucket capacity, on the main path's own size buckets
    (StarDist stage A of the 16 frames; its row sums these) and on the
    threshold path's (the mask route's stage A; the row's `threshold_*`
-   keys): bit-equal; CC labels on the 16 frames' threshold masks at
-   connectivity 1 and 2: equal;
+   keys): bit-equal; `label_components` (the tile CC kernel, compaction
+   included) on the 16 frames' threshold masks at connectivity 1 and 2:
+   labels and counts equal to `label_components_plain`, with the eager
+   compaction that the parent ran after its kernel timed for the record;
+   then on 1024^2 structural masks (all-true, a full-frame serpentine,
+   random at 0.59 density) at connectivity 1 and 2: equal to labels
+   derived from `scipy.ndimage.label` on the host;
 3. the main path — StarDist screening of the bench's 16 synthetic
    1024^2 frames (made once, on the host, for phases 2, 3, 5 and 6)
    through `score_frames_fused`, run twice; the launch counts of the
@@ -41,8 +46,8 @@ Phases (any failure exits non-zero before the last line is printed):
    within 1e-4; (c) equals (b) exactly.  The counts are set to 0 before
    each run and read after it: (a) launches segment sum and CLAHE (at
    most once a size bucket), (b) the CC kernel too (its row's count), and
-   (c) as many CC calls as (b) (one per batch; each call is three
-   launches: init, union, flatten);
+   (c) as many CC calls as (b) (one per batch; each call is
+   `ops.cuda.cc.KERNELS_PER_CALL` launches);
 6. the StarDist exact twin (scatter rasterizer, K^2 NMS pairs, pixel
    regionprops) on the 16 frames: phase 3's cells, areas and scores
    within 1e-4, except the listed cells of polygons that the scatter
@@ -252,8 +257,12 @@ def _clahe_buckets(torch, path: dict, what: str) -> dict:
 
 def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
-    from cell_image_analysis_tpu_torch.ops.cc import cc_min_labels_plain
-    from cell_image_analysis_tpu_torch.ops.cuda.cc import cc_min_labels_cuda
+    from cell_image_analysis_tpu_torch.ops.cc import (
+        cc_min_labels_plain,
+        compact_labels,
+        label_components,
+        label_components_plain,
+    )
     from cell_image_analysis_tpu_torch.ops.cuda.segsum import segment_sums_cuda
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
     from cell_image_analysis_tpu_torch.ops.runs import run_moment_table
@@ -345,31 +354,66 @@ def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
     res["clahe_cells"] = dict(max_abs_err=0.0, bound_by="bytes", library_ms=None, **row,
                               threshold_ms=thr["ms"], threshold_bound_ms=thr["bound_ms"])
 
-    # CC labels on the 16 frames' threshold masks (the threshold path's input)
+    # CC on the 16 frames' threshold masks (the threshold label route's input)
     masks = threshold_mask(main["segs"])
-    log(f"[2] cc_min_labels input: {tuple(masks.shape)} masks, "
+    log(f"[2] label_components input: {tuple(masks.shape)} masks, "
         f"{float(masks.float().mean()):.4f} foreground")
     for conn in (1, 2):
-        got = cc_min_labels_cuda(masks, conn)
-        ref = cc_min_labels_plain(masks, conn)
+        got, count = label_components(masks, conn)
+        ref, ref_count = label_components_plain(masks, conn)
         torch.cuda.synchronize()
-        if not torch.equal(got, ref):
+        if not (torch.equal(got, ref) and torch.equal(count, ref_count)):
             n_bad = int((got != ref).sum())
-            raise AssertionError(f"cc_min_labels connectivity {conn}: {n_bad} labels differ")
+            raise AssertionError(f"label_components connectivity {conn}: {n_bad} labels, "
+                                 f"{int((count != ref_count).sum())} counts differ")
         err = float((got - ref).abs().max())
-        t_d = device_ms(lambda: cc_min_labels_cuda(masks, conn), ("cc_init", "cc_union",
-                                                                  "cc_flatten"))
-        t_k = time_ms(lambda: cc_min_labels_cuda(masks, conn))
-        t_p = time_ms(lambda: cc_min_labels_plain(masks, conn), n=3)
+        t_d = device_ms(lambda: label_components(masks, conn), ("cc_tile_",))
+        t_k = time_ms(lambda: label_components(masks, conn))
+        t_p = time_ms(lambda: label_components_plain(masks, conn), n=3)
+        raw = cc_min_labels_plain(masks, conn)
+        t_c = time_ms(lambda: compact_labels(raw))
         b_ms, b_by = bound(masks.numel() * (1 + 4))
-        log(f"[2] cc_min_labels connectivity {conn}: equal; kernels device {t_d:.4f} ms, "
-            f"wrapper call {t_k:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), "
-            f"{100 * b_ms / t_d:.1f}% of it; plain sweeps {t_p:.3f} ms")
+        log(f"[2] label_components connectivity {conn}: {int(count.sum())} components, labels "
+            f"and counts equal; kernels device {t_d:.4f} ms, wrapper call {t_k:.4f} ms; bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}), {100 * b_ms / t_d:.1f}% of it; plain {t_p:.3f} ms; "
+            f"for the record, the eager compaction alone (the parent's route after its "
+            f"raw-label kernel) {t_c:.4f} ms")
         if conn == 1:   # the connectivity of the main path
-            res["cc_min_labels"] = dict(max_abs_err=err, ms=t_d, event_ms=t_k, plain_ms=t_p,
-                                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        del got, ref
+            res["cc_tile_labels"] = dict(max_abs_err=err, ms=t_d, event_ms=t_k, plain_ms=t_p,
+                                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del got, ref, raw
+    _cc_structural(torch, dev)
     return res
+
+
+def _cc_structural(torch, dev, side: int = 1024) -> None:
+    """`label_components` on masks that cross every tile, which the plain
+    sweeps cannot finish (a geodesic of ~side^2 / 2 pixels): all true, a
+    serpentine over the whole frame, random at 0.59 density; labels and
+    counts equal to those of `scipy.ndimage.label` on the host."""
+    from scipy import ndimage as ndi
+
+    from cell_image_analysis_tpu_torch.ops.cc import label_components
+
+    serpentine = np.zeros((side, side), bool)
+    serpentine[::2] = True
+    serpentine[1::4, -1] = True
+    serpentine[3::4, 0] = True
+    rng = np.random.default_rng(5)
+    host = np.stack([np.ones((side, side), bool), serpentine,
+                     rng.random((side, side)) < 0.59, rng.random((side, side)) < 0.59])
+    masks = torch.from_numpy(host).to(dev)
+    for conn in (1, 2):
+        got, count = label_components(masks, conn)
+        got, count = got.cpu().numpy(), count.cpu().numpy()
+        for b, name in enumerate(("all-true", "serpentine", "random 0.59 #1", "random 0.59 #2")):
+            ref, n = ndi.label(host[b], structure=None if conn == 1 else np.ones((3, 3), bool))
+            if count[b] != n or not np.array_equal(got[b], ref):
+                raise AssertionError(f"label_components {name} {side}^2, connectivity {conn}: "
+                                     f"{int((got[b] != ref).sum())} labels differ, count "
+                                     f"{count[b]} vs scipy {n}")
+        log(f"[2] label_components on {side}^2 all-true, serpentine and two random 0.59 masks, "
+            f"connectivity {conn}: counts {count.tolist()}, equal to scipy.ndimage.label")
 
 
 class _Recording:
@@ -422,7 +466,7 @@ def _kernel_modules():
     from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum, winograd
 
     return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_cells": clahe_kernel,
-            "cc_min_labels": cc}
+            "cc_tile_labels": cc}
 
 
 def _reset_launches() -> None:
@@ -587,16 +631,16 @@ def phase_threshold(torch, dev, segs, greens, params_model) -> dict:
     if twin_c.calls != 1:
         raise AssertionError("[5] (c) the fallback did not fire at rcap 8")
     missing = [k for k in ("segment_sum", "clahe_cells") if launches_a[k] <= 0]
-    missing += [f"(b) {k}" for k in ("cc_min_labels", "segment_sum", "clahe_cells")
+    missing += [f"(b) {k}" for k in ("cc_tile_labels", "segment_sum", "clahe_cells")
                 if launches_b[k] <= 0]
     if missing:
         raise AssertionError(f"[5] kernels of the threshold path were not launched: {missing}")
     if max(launches_a["clahe_cells"], launches_b["clahe_cells"]) > N_BUCKETS:
         raise AssertionError(f"[5] more CLAHE launches than the {N_BUCKETS} size buckets")
     # the fallback re-runs the whole batch through the label route once
-    if launches_c["cc_min_labels"] != launches_b["cc_min_labels"]:
-        raise AssertionError(f"[5] (c) made {launches_c['cc_min_labels']} CC calls, the label "
-                             f"route {launches_b['cc_min_labels']}")
+    if launches_c["cc_tile_labels"] != launches_b["cc_tile_labels"]:
+        raise AssertionError(f"[5] (c) made {launches_c['cc_tile_labels']} CC calls, the label "
+                             f"route {launches_b['cc_tile_labels']}")
     report = compare_screens(res_b, res_a, {}, float(params_model[1].ensemble_mse_threshold),
                              tol=TOL)
     log(f"[5] (a) vs (b): same {report['n_cells']} cells and areas; max score difference "
@@ -736,7 +780,7 @@ def main() -> int:
     params_model = load_scoring_params(device=dev)
     if 5 in phases:
         launches_a, launches_b = phase_threshold(torch, dev, segs, greens, params_model)
-        launches["cc_min_labels"] = launches_b["cc_min_labels"]
+        launches["cc_tile_labels"] = launches_b["cc_tile_labels"]
         if 2 in phases:
             kernels["clahe_cells"]["threshold_launches"] = launches_a["clahe_cells"]
     if 6 in phases and 3 in phases:
@@ -753,17 +797,19 @@ def main() -> int:
                         "cell_image_analysis_tpu/ops/pallas/segsum.py:49"),
         "clahe_cells": ("csrc/clahe_cells.cu",
                         "cell_image_analysis_tpu/ops/pallas/clahe_kernel.py:184"),
-        "cc_min_labels": ("csrc/cc_min_labels.cu",
-                          "cell_image_analysis_tpu/ops/pallas/cc_kernel.py:80"),
+        "cc_tile_labels": ("csrc/cc_tile_labels.cu",
+                           "cell_image_analysis_tpu/ops/pallas/cc_kernel.py:80"),
     }
     # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
     # phase 5 (b), the label route); `launches_per_batch`: the kernel
-    # launches on the card they make (a CC call is three); `ms` is the
+    # launches on the card they make (a CC call is the module's
+    # KERNELS_PER_CALL); `ms` is the
     # kernel's device time (torch.profiler), `event_ms` one event-timed
     # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
+    modules = _kernel_modules()
     rows = [dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=rep,
                  launches=launches[name],
-                 launches_per_batch=launches[name] * (3 if name == "cc_min_labels" else 1),
+                 launches_per_batch=launches[name] * getattr(modules[name], "KERNELS_PER_CALL", 1),
                  **kernels[name])
             for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))

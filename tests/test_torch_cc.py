@@ -1,5 +1,6 @@
 """PyTorch port: connected components (`ops.cc.label_components`, whose
-plain version stands in for the CC kernel on the CPU) against JAX
+plain version `label_components_plain` stands in for the CC kernel on the
+CPU) against JAX
 `label_components(impl="sweeps")` and `scipy.ndimage.label`: identical
 labels and counts at connectivity 1 and 2, exact."""
 
@@ -11,7 +12,11 @@ from scipy import ndimage as ndi
 
 from torch_port_helpers import torch_threads
 
-from cell_image_analysis_tpu_torch.ops.cc import cc_min_labels, label_components
+from cell_image_analysis_tpu_torch.ops.cc import (
+    cc_min_labels_plain,
+    label_components,
+    label_components_plain,
+)
 
 torch_threads()
 
@@ -87,11 +92,20 @@ def test_batched_frames_label_independently():
 
 def test_raw_labels_are_component_minima():
     mask = _blobs(5, 64, 64, n=6)
-    raw = cc_min_labels(torch.from_numpy(mask)[None], connectivity=1)[0].numpy()
+    raw = cc_min_labels_plain(torch.from_numpy(mask)[None], connectivity=1)[0].numpy()
     ref, n = ndi.label(mask)
     flat = np.arange(mask.size).reshape(mask.shape)
     for k in range(1, n + 1):
         assert set(np.unique(raw[ref == k])) == {flat[ref == k].min() + 1}
     assert (raw[~mask] == 0).all()
     with pytest.raises(ValueError):
-        cc_min_labels(torch.from_numpy(mask)[None], connectivity=3)
+        cc_min_labels_plain(torch.from_numpy(mask)[None], connectivity=3)
+
+
+def test_label_components_on_the_cpu_is_the_plain_version():
+    mask = torch.from_numpy(np.stack([_blobs(7, 64, 72), _noise(2)]))
+    for conn in (1, 2):
+        got, want = label_components(mask, conn), label_components_plain(mask, conn)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        label_components(mask, connectivity=0)

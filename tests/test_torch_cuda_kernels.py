@@ -160,6 +160,28 @@ def test_clahe_kernel_rejects_what_it_does_not_take(dev):
     assert bool(torch.isnan(out[2]).all()) and not bool(torch.isnan(out[[0, 1, 3]]).any())
 
 
+def _serpentine(h, w, step=2):
+    """Rows 0, step, 2 step, ... full width, joined alternately at the right
+    and the left end: one component that crosses every tile."""
+    m = np.zeros((h, w), bool)
+    m[::step] = True
+    for i, r in enumerate(range(step, h, step)):
+        m[r - step + 1:r, w - 1 if i % 2 == 0 else 0] = True
+    return m
+
+
+def _corner_touch(h=64, w=192):
+    """Pairs of blocks that touch only diagonally across the kernel's 32 x 64
+    tile edges: at a tile corner (both diagonals), across a row edge and
+    across a column edge.  Eight components at connectivity 1, four at 2."""
+    m = np.zeros((h, w), bool)
+    m[28:32, 60:64] = m[32:36, 64:68] = True       # corner (32, 64), down-right
+    m[28:32, 128:132] = m[32:36, 124:128] = True   # corner (32, 128), down-left
+    m[26:32, 69:72] = m[32:36, 72:75] = True       # across the row edge in tile column 1
+    m[10, 63] = m[11, 64] = True                   # across the column edge in tile row 0
+    return m
+
+
 def _cc_masks():
     rng = np.random.default_rng(4)
     yy, xx = np.mgrid[0:96, 0:96]
@@ -167,6 +189,8 @@ def _cc_masks():
     for i, r in enumerate(range(4, 92, 8)):
         serp[r, 4:92] = True
         serp[r:r + 9, 91 if i % 2 == 0 else 4] = True
+    blobs = np.random.default_rng(5).random((3, 70, 200)) < 0.57
+    blobs[1] = False            # an empty frame in the batch
     return {
         "1x1": (np.ones((1, 1, 1), bool), 1),
         "7x300": (rng.random((1, 7, 300)) < 0.6, 1),
@@ -174,23 +198,67 @@ def _cc_masks():
         "all_true": (np.ones((3, 64, 48), bool), 1),
         "checkerboard": (((yy + xx) % 2 == 0)[None], 2),
         "serpentine": (serp[None], 1),
+        # sides of tile - 1, tile, tile + 1 around the kernel's 32 x 64 tile
+        **{f"sides_{h}x{w}": (rng.random((2, h, w)) < 0.58, 2)
+           for h, w in ((31, 63), (32, 64), (33, 65), (65, 129), (1, 200), (97, 1))},
+        "corner_touch": (_corner_touch()[None], 2),
+        "empty_frame_in_batch": (blobs, 2),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_cc_masks()))
 def test_cc_kernel_matches_plain(dev, name):
-    from cell_image_analysis_tpu_torch.ops.cc import cc_min_labels, cc_min_labels_plain
+    from cell_image_analysis_tpu_torch.ops.cc import label_components, label_components_plain
     from cell_image_analysis_tpu_torch.ops.cuda import cc as launcher
 
     mask_np, conn = _cc_masks()[name]
     mask = torch.from_numpy(mask_np).to(dev)
     for c in sorted({1, conn}):
         before = launcher.LAUNCHES
-        got = cc_min_labels(mask, connectivity=c)
+        got, count = label_components(mask, connectivity=c)
         assert launcher.LAUNCHES == before + 1
-        ref = cc_min_labels_plain(mask, connectivity=c)
+        ref, ref_count = label_components_plain(mask, connectivity=c)
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == mask.shape
+        assert count.dtype == torch.int32 and count.shape == (mask.shape[0],)
         assert torch.equal(got, ref), f"connectivity {c}"
-    if name == "checkerboard":   # one component at 8-connectivity, none larger at 4
-        assert int(got.max()) == 1
+        assert torch.equal(count, ref_count), f"connectivity {c}"
+    if name == "checkerboard":   # one component at 8-connectivity
+        assert int(got.max()) == 1 and int(count[0]) == 1
+    if name == "corner_touch":
+        assert int(label_components(mask, 1)[1][0]) == 8 and int(count[0]) == 4
+
+
+@pytest.mark.parametrize("conn", [1, 2])
+def test_cc_kernel_on_1024_frames_matches_scipy(dev, conn):
+    """All true and a serpentine through every tile, where the plain sweeps
+    would need ~half a million passes."""
+    from scipy import ndimage as ndi
+
+    from cell_image_analysis_tpu_torch.ops.cc import label_components
+    from cell_image_analysis_tpu_torch.ops.cuda import cc as launcher
+
+    host = np.stack([np.ones((1024, 1024), bool), _serpentine(1024, 1024)])
+    before = launcher.LAUNCHES
+    got, count = label_components(torch.from_numpy(host).to(dev), conn)
+    assert launcher.LAUNCHES == before + 1
+    for b in range(2):
+        ref, n = ndi.label(host[b], structure=None if conn == 1 else np.ones((3, 3), bool))
+        assert n == 1 and int(count[b]) == 1
+        assert np.array_equal(got[b].cpu().numpy(), ref)
+
+
+def test_cc_kernel_rejects_what_it_does_not_take(dev):
+    from cell_image_analysis_tpu_torch.ops.cuda.cc import label_components_cuda
+
+    mask = torch.rand((2, 40, 70), device=dev) < 0.5
+    label_components_cuda(mask, 1)
+    with pytest.raises(ValueError):
+        label_components_cuda(mask.cpu(), 1)
+    for bad in (mask.to(torch.uint8), mask[0]):
+        with pytest.raises(TypeError):
+            label_components_cuda(bad, 1)
+    with pytest.raises(ValueError):
+        label_components_cuda(mask.transpose(1, 2), 1)         # not contiguous
+    with pytest.raises(ValueError):
+        label_components_cuda(mask, 3)

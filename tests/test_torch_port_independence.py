@@ -1,7 +1,8 @@
 """PyTorch port: it stands on its own.
 
 - No file of `cell_image_analysis_tpu_torch/`, nor `chip_smoke.py`,
-  `scripts/profile_torch_port.py` or `scripts/clahe_bands.py`, imports
+  `scripts/profile_torch_port.py`, `scripts/clahe_bands.py`,
+  `scripts/cc_split.py` or `scripts/cc_ablate.py`, imports
   `jax` or anything of the JAX package (an AST scan, one case a file).
 - The port's `SegConfig` has the JAX defaults, field for field, and leaves
   out only the JAX package's TPU knobs.
@@ -28,7 +29,8 @@ _PORT_FILES = sorted(
     [os.path.relpath(p, _REPO) for p in
      glob.glob(os.path.join(_REPO, "cell_image_analysis_tpu_torch", "**", "*.py"), recursive=True)]
     + ["chip_smoke.py", os.path.join("scripts", "profile_torch_port.py"),
-       os.path.join("scripts", "clahe_bands.py")])
+       os.path.join("scripts", "clahe_bands.py"), os.path.join("scripts", "cc_split.py"),
+       os.path.join("scripts", "cc_ablate.py")])
 _FORBIDDEN = ("jax", "jaxlib", "flax", "cell_image_analysis_tpu")
 _TPU_KNOBS = {"unet_dtype", "unet_precision", "unet_lvl0_precision", "unet_lvl0_s2d",
               "unet_wb16", "unet_hilo", "unet_winograd"}

@@ -285,3 +285,158 @@ def clahe_kernel_emulation(crops: np.ndarray, ids, heights, widths, cap: int, ba
         for y0, y1, v in blends:
             out[c, y0:y1, :w] = (v.astype(f32) - lo2) * scale2
     return out
+
+
+def _find(p, x, halve: bool = True) -> int:
+    """Root of x in parent array p, halving the path as `find_root` does;
+    a parent that no pass wrote (-1) is a fault of the emulated kernel."""
+    px = p[x]
+    while px != x:
+        assert px >= 0, f"read parent[{x}], which no pass wrote"
+        gp = p[px]
+        assert gp >= 0, f"read parent[{px}], which no pass wrote"
+        if halve and gp != px:
+            p[x] = min(p[x], gp)
+        x, px = px, gp
+    return x
+
+
+def _unite(p, a: int, b: int) -> None:
+    """`unite`: link the larger root under the smaller (one thread's atomicMin
+    at a time: the kernel's unions in some order)."""
+    a, b = _find(p, a), _find(p, b)
+    if a != b:
+        a, b = min(a, b), max(a, b)
+        p[b] = a
+
+
+def _tile_local(t: np.ndarray, conn: int, rng) -> np.ndarray:
+    """`build_tile` of csrc/cc_tile_labels.cu on one (th, tw) tile (False
+    outside the frame): each foreground pixel's local root (tile-local
+    index), -1 on the background.  Pixels start at their run's first pixel;
+    the unions with the row above, minus those a left neighbour's implies,
+    run in an order drawn from rng."""
+    th, tw = t.shape
+    col = np.arange(tw)
+    start = np.maximum.accumulate(np.where(t, -1, col), axis=1) + 1   # run starts
+    l = np.where(t, np.arange(th)[:, None] * tw + start, -1).reshape(-1)
+    pairs = []
+    for r, c in zip(*np.nonzero(t[1:])):
+        r += 1
+        i = r * tw + c
+        up, left = t[r - 1, c], c > 0 and t[r, c - 1]
+        if up and not (left and t[r - 1, c - 1]):
+            pairs.append((i, i - tw))
+        if conn == 2:
+            if c > 0 and not up and not left and t[r - 1, c - 1]:
+                pairs.append((i, i - tw - 1))
+            if c + 1 < tw and not up and not t[r, c + 1] and t[r - 1, c + 1]:
+                pairs.append((i, i - tw + 1))
+    for k in rng.permutation(len(pairs)):
+        _unite(l, *pairs[k])
+    for i in np.flatnonzero(t):
+        l[i] = _find(l, i, halve=False)
+    return l
+
+
+def cc_tile_emulation(mask: np.ndarray, conn: int, th: int = 32, tw: int = 64, seed: int = 0):
+    """The passes of `csrc/cc_tile_labels.cu` in numpy at tile th x tw,
+    with the unions of each pass in an order drawn from `seed`: (labels
+    (B, H, W) int32, count (B,) int32), `label_components`' contract.
+
+    A  tile-local union-find; parent[g] = g at local roots and
+       parent[p] = root(p) at the foreground pixels of the tile's edges;
+       a bit a local root in its (row, tile column) segment's word;
+    B  unions in `parent` of the touching foreground pairs across tile
+       edges, minus those the pair beside them in the same tiles implies;
+    C  a segment keeps the bits of the local roots that are still roots;
+       its count of them before it in its row, and each row's total;
+    D  exclusive prefix of the rows' totals;
+    E  tile-local union-find again; each local root's global root G gets
+       1 + prefix(row(G)) + offset(segment(G)) + the roots before G in its
+       segment."""
+    rng = np.random.default_rng(seed)
+    m = np.asarray(mask, bool)
+    B, H, W = m.shape
+    ty_n, tx_n = -(-H // th), -(-W // tw)
+    parent = np.full((B, H * W), -1, np.int64)
+    bits = np.zeros((B, H, tx_n), object)
+    tiles = [(b, ty, tx) for b in range(B) for ty in range(ty_n) for tx in range(tx_n)]
+
+    def tile(b, ty, tx):
+        t = np.zeros((th, tw), bool)
+        sub = m[b, ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw]
+        t[:sub.shape[0], :sub.shape[1]] = sub
+        return t, _tile_local(t, conn, rng), sub.shape
+
+    def g(ty, tx, i):
+        return (ty * th + i // tw) * W + tx * tw + i % tw
+
+    # A
+    for k in rng.permutation(len(tiles)):
+        b, ty, tx = tiles[k]
+        t, l, (rows_in, cols_in) = tile(b, ty, tx)
+        for i in np.flatnonzero(t):
+            r, c = divmod(i, tw)
+            if l[i] == i:
+                bits[b, ty * th + r, tx] |= 1 << int(c)
+            if l[i] == i or r in (0, rows_in - 1) or c in (0, cols_in - 1):
+                parent[b, g(ty, tx, i)] = g(ty, tx, l[i])
+    # B
+    pairs = []
+    for b in range(B):
+        f = m[b].reshape(-1)
+        for r in range(th, H, th):
+            for c in range(W):
+                pi, qi = r * W + c, (r - 1) * W + c
+                if not f[pi]:
+                    continue
+                up, inner_l, inner_r = f[qi], c % tw != 0, (c + 1) % tw != 0
+                if up and not (inner_l and f[pi - 1] and f[qi - 1]):
+                    pairs.append((b, pi, qi))
+                if conn == 2 and c > 0 and f[qi - 1] and not (inner_l and (up or f[pi - 1])):
+                    pairs.append((b, pi, qi - 1))
+                if (conn == 2 and c + 1 < W and f[qi + 1]
+                        and not (inner_r and (up or f[pi + 1]))):
+                    pairs.append((b, pi, qi + 1))
+        for c in range(tw, W, tw):
+            for r in range(H):
+                pi, qi = r * W + c, r * W + c - 1
+                if not f[pi]:
+                    continue
+                left, inner_u = f[qi], r % th != 0
+                if left and not (inner_u and f[pi - W] and f[qi - W]):
+                    pairs.append((b, pi, qi))
+                if conn == 2 and inner_u and f[qi - W] and not (left or f[pi - W]):
+                    pairs.append((b, pi, qi - W))
+                if (conn == 2 and r + 1 < H and (r + 1) % th != 0 and f[qi + W]
+                        and not (left or f[pi + W])):
+                    pairs.append((b, pi, qi + W))
+    for k in rng.permutation(len(pairs)):
+        b, pi, qi = pairs[k]
+        _unite(parent[b], pi, qi)
+    # C
+    for (b, r, tx), word in np.ndenumerate(bits):
+        bits[b, r, tx] = sum(1 << c for c in range(tw) if word >> c & 1
+                             and parent[b, r * W + tx * tw + c] == r * W + tx * tw + c)
+    counts = np.vectorize(lambda x: bin(x).count("1"), otypes=[np.int64])(bits)
+    offsets = np.cumsum(counts, axis=2) - counts                      # within the row
+    rows = counts.sum(axis=2)
+    # D
+    row_first = np.cumsum(rows, axis=1) - rows
+    count = rows.sum(axis=1).astype(np.int32)
+    # E
+    labels = np.zeros((B, H, W), np.int32)
+    for k in rng.permutation(len(tiles)):
+        b, ty, tx = tiles[k]
+        t, l, (rows_in, cols_in) = tile(b, ty, tx)
+        lab = {}
+        for i in np.flatnonzero(t & (l.reshape(th, tw) == np.arange(th * tw).reshape(th, tw))):
+            G = _find(parent[b].copy(), g(ty, tx, i), halve=False)
+            gr, gc = divmod(int(G), W)
+            s = (b, gr, gc // tw)
+            lab[i] = (1 + row_first[b, gr] + offsets[s]
+                      + bin(bits[s] & ((1 << (gc % tw)) - 1)).count("1"))
+        out = np.array([lab[li] if li >= 0 else 0 for li in l]).reshape(th, tw)
+        labels[b, ty * th:ty * th + rows_in, tx * tw:tx * tw + cols_in] = out[:rows_in, :cols_in]
+    return labels, count
