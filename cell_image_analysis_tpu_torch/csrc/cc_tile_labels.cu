@@ -498,13 +498,18 @@ long long grid_stride_blocks(long long n) {
   return blocks < 1 ? 1 : (blocks > MAX_BLOCKS ? MAX_BLOCKS : blocks);
 }
 
-// Blocks of a persistent tile kernel: as many as fit on the device at once
-// (asked once a kernel; the grid's size moves only the speed).
+constexpr int MAX_DEVICES = 64;  // device ordinals with a remembered grid size
+
+// Blocks of a persistent tile kernel: as many as fit on the current device
+// at once (asked once a kernel and device; the grid's size moves only the
+// speed).
 template <typename K>
-unsigned resident_blocks(K kernel, long long tiles, int& fit) {
+unsigned resident_blocks(K kernel, long long tiles, int (&fits)[MAX_DEVICES]) {
+  int dev = 0, uncached = 0;
+  cudaGetDevice(&dev);
+  int& fit = dev >= 0 && dev < MAX_DEVICES ? fits[dev] : uncached;
   if (fit <= 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
     fit = sms * (per_sm > 0 ? per_sm : 1);
@@ -513,7 +518,7 @@ unsigned resident_blocks(K kernel, long long tiles, int& fit) {
   return (unsigned)(need < fit ? need : fit);
 }
 
-int fit_local = 0, fit_write = 0;
+int fit_local[MAX_DEVICES] = {}, fit_write[MAX_DEVICES] = {};
 
 }  // namespace
 

@@ -368,17 +368,23 @@ winograd_kernel(const float* __restrict__ x, const float* __restrict__ U_hi,
   }
 }
 
+constexpr int MAX_DEVICES = 64;  // device ordinals with a remembered attribute
+
 }  // namespace
 
 extern "C" int cia_winograd_conv3x3(const void* x, const void* U_hi, const void* U_lo,
                                     const void* bias, void* y, int B, int H, int W, int Ci,
                                     int Co, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the attribute belongs to the current device's copy of the kernel
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(
         winograd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    if (dev >= 0 && dev < MAX_DEVICES) smem_set[dev] = true;
   }
   if (Ci <= 0 || Ci % CI_CH) return (int)cudaErrorInvalidValue;
   const int ho = H / 2, wo = W / 2;

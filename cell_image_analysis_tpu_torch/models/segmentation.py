@@ -70,13 +70,13 @@ def threshold_mask(seg_channels: torch.Tensor, threshold_percentile: float = 90.
     B = x.shape[0]
     rk = percentile_ranks(x[0].numel(), (pmin, pmax, threshold_percentile))
     v = kth_smallest(x, tuple(k for r in rk for k in r[:2])).reshape(B, 6, 1, 1)
-    f = [torch.tensor(r[2], dtype=torch.float32, device=x.device) for r in rk]
+    f = [torch.full((), float(r[2]), dtype=torch.float32, device=x.device) for r in rk]
 
     def lerp(i):
         return v[:, 2 * i] * (1.0 - f[i]) + v[:, 2 * i + 1] * f[i]
 
     lo, hi = lerp(0), lerp(1)
-    scale = hi - lo + torch.tensor(1e-20, dtype=torch.float32, device=x.device)
+    scale = hi - lo + torch.full((), 1e-20, dtype=torch.float32, device=x.device)
     norm = (x - lo) / scale
 
     def g(t):
@@ -159,9 +159,9 @@ class StarDistBackend:
 
     def exact_twin(self) -> StarDistBackend:
         """The overflow re-run target, on the same U-Net: scatter
-        rasterizer, the exact K^2 NMS pair set, pixel regionprops."""
-        cfg = dataclasses.replace(self.cfg, raster_mode="scatter",
-                                  nms_max_pairs=self.cfg.max_candidates ** 2)
+        rasterizer, every candidate pair in the NMS (`nms_max_pairs=None`;
+        the JAX twin sets K^2, the same pair set), pixel regionprops."""
+        cfg = dataclasses.replace(self.cfg, raster_mode="scatter", nms_max_pairs=None)
         return StarDistBackend(None, cfg, runs_props=False, model=self.model)
 
     @torch.inference_mode()

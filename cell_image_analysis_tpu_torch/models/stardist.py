@@ -3,7 +3,8 @@
 Counterpart of `cell_image_analysis_tpu/models/stardist.py` on the path
 the screening bench runs: percentile normalization, reflect padding to a
 multiple of 2**depth, the U-Net with the late dist head, top-K candidates
-(lower index first on ties, as `lax.top_k`), the in-frame local-maximum
+among the grid pixels inside the frame (lower index first on ties, as
+`lax.top_k`), the in-frame local-maximum
 count behind `cand_overflow`, sparse-pair star NMS, and the tiled
 rasterizer — or the scatter rasterizer for `raster_mode="scatter"` and
 for frames whose side is not a multiple of `raster_tile`, as JAX routes
@@ -12,6 +13,7 @@ it.  Batched over frames: (B, H, W) raw channels in.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -56,7 +58,12 @@ def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegCon
 
     prob, feat = model(x[..., None])                 # (B, h', w'), (B, h', w', F)
     hp, wp = prob.shape[1:]
-    flat = prob.reshape(B, -1)
+    # grid pixels of the reflect padding lie outside the frame: they take no
+    # candidate slot (the JAX package sorts them in; on frames whose sides
+    # are multiples of 2**depth there are none)
+    in_img = ((torch.arange(hp, device=prob.device)[:, None] * gy < h)
+              & (torch.arange(wp, device=prob.device)[None, :] * gx < w))
+    flat = torch.where(in_img, prob, -math.inf).reshape(B, -1)
     order = torch.sort(flat, dim=1, descending=True, stable=True)
     top_p, top_i = order.values[:, :K], order.indices[:, :K]
     feat_rows = gather_rows(feat.reshape(B, hp * wp, -1), top_i)
@@ -64,8 +71,6 @@ def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegCon
     valid = top_p > cfg.prob_thresh
 
     neigh = F.max_pool2d(prob[:, None], 3, stride=1, padding=1)[:, 0]
-    in_img = ((torch.arange(hp, device=prob.device)[:, None] * gy < h)
-              & (torch.arange(wp, device=prob.device)[None, :] * gx < w))
     n_peaks = ((prob >= neigh) & (prob > cfg.prob_thresh) & in_img).reshape(B, -1).sum(dim=1)
     cand_ovf = n_peaks > K
     rows = (top_i // wp).float() * gy
@@ -75,7 +80,7 @@ def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegCon
 
     keep, nms_ovf = star_nms(centers, cand_dists, top_p, valid,
                              nms_thresh=cfg.nms_thresh, metric=cfg.nms_metric,
-                             max_pairs=min(cfg.nms_max_pairs, K * K))
+                             max_pairs=cfg.nms_max_pairs)
     tile = cfg.raster_tile
     if cfg.raster_mode == "tiled" and h % tile == 0 and w % tile == 0:
         labels, r_ovf = rasterize_polygons_tiled(

@@ -13,7 +13,8 @@ blends `S // (kh*kw)`; the min-max rescale follows.
 and launch the fused kernel `csrc/clahe_cells.cu` (all of the above in one
 launch a size bucket, reading the crops in place) for CUDA tensors.  The
 core arithmetic is on integers and the few float steps are IEEE, so both
-agree bit for bit.
+agree bit for bit.  `size_buckets` sorts cells into the size buckets that
+the callers run one `clahe_bucket` each for.
 """
 
 from __future__ import annotations
@@ -174,6 +175,24 @@ def clahe_cells_plain(crops: torch.Tensor, heights: torch.Tensor, widths: torch.
     hi2 = torch.where(valid, out, -big).amax(dim=(1, 2), keepdim=True)
     scale2 = torch.where(hi2 > lo2, torch.ones_like(hi2) / (hi2 - lo2), torch.zeros_like(hi2))
     return torch.where(valid, (out - lo2) * scale2, torch.zeros_like(out))
+
+
+def size_buckets(heights: torch.Tensor, widths: torch.Tensor, valid: torch.Tensor,
+                 caps: tuple, full_cap: int) -> list:
+    """The CLAHE size buckets of the (N,) cells: [(cell indices, cap,
+    ns_cap)], each cell in the tightest capacity that fits; cells with a
+    side of 13-15 px need 13-15 tiles on that axis, so they ride the last
+    bucket (the full crop capacity, ns_cap 16)."""
+    all_caps = tuple(c for c in sorted(caps) if c < full_cap) + (full_cap,)
+    ns_ok = (((heights >= 16) | (heights <= 12)) & ((widths >= 16) | (widths <= 12)))
+    buckets = []
+    fits_prev = torch.zeros_like(valid)
+    for cap_b in all_caps[:-1]:
+        fits = (heights <= cap_b) & (widths <= cap_b) & ns_ok
+        buckets.append((valid & fits & ~fits_prev, cap_b, NS_CAP_16PX))
+        fits_prev = fits
+    buckets.append((valid & ~fits_prev, all_caps[-1], NS_CAP))
+    return [(torch.nonzero(mask).flatten(), cap_b, ns_cap) for mask, cap_b, ns_cap in buckets]
 
 
 def clahe_bucket(crops: torch.Tensor, ids: torch.Tensor, heights: torch.Tensor,

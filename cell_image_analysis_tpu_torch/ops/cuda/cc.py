@@ -46,9 +46,10 @@ def label_components_cuda(mask: torch.Tensor, connectivity: int = 1):
                                                             n_seg * 4, B * h * 4)))
     scratch = torch.empty((at[-1],), dtype=torch.uint8, device=mask.device)
     ptr = scratch.data_ptr()
-    err = library().cia_cc_label_components(
-        mask.data_ptr(), ptr, ptr + at[0], ptr + at[1], ptr + at[2], labels.data_ptr(),
-        count.data_ptr(), B, h, w, connectivity, stream_ptr(mask.device))
+    with torch.cuda.device(mask.device):
+        err = library().cia_cc_label_components(
+            mask.data_ptr(), ptr, ptr + at[0], ptr + at[1], ptr + at[2], labels.data_ptr(),
+            count.data_ptr(), B, h, w, connectivity, stream_ptr(mask.device))
     check(err, "label_components")
     LAUNCHES += 1
     return labels, count

@@ -50,10 +50,11 @@ def clahe_cells_cuda(crops: torch.Tensor, ids: torch.Tensor, heights: torch.Tens
     ids, heights, widths = ids.contiguous(), heights.contiguous(), widths.contiguous()
     C = ids.shape[0]
     out = torch.empty((C, cap, cap), dtype=torch.float32, device=crops.device)
-    err = library().cia_clahe_cells(
-        crops.data_ptr(), full_cap, N, ids.data_ptr(), C, heights.data_ptr(), widths.data_ptr(),
-        cap, ns_cap, clip_limit, grid, default_bands(C, crops.device), out.data_ptr(),
-        stream_ptr(crops.device))
+    with torch.cuda.device(crops.device):
+        err = library().cia_clahe_cells(
+            crops.data_ptr(), full_cap, N, ids.data_ptr(), C, heights.data_ptr(),
+            widths.data_ptr(), cap, ns_cap, clip_limit, grid, default_bands(C, crops.device),
+            out.data_ptr(), stream_ptr(crops.device))
     check(err, "clahe_cells")
     LAUNCHES += 1
     return out

@@ -22,9 +22,10 @@ def segment_sums_cuda(seg: torch.Tensor, data: torch.Tensor, n_seg: int) -> torc
         raise ValueError(f"segment_sums_cuda: seg {tuple(seg.shape)} vs data {tuple(data.shape)}")
     seg, data = seg.contiguous(), data.contiguous()
     out = torch.zeros((n_seg, F), dtype=torch.int64, device=data.device)
-    err = library().cia_segment_sum_i64(
-        seg.data_ptr(), data.data_ptr(), out.data_ptr(), P, F, n_seg,
-        stream_ptr(data.device))
+    with torch.cuda.device(data.device):
+        err = library().cia_segment_sum_i64(
+            seg.data_ptr(), data.data_ptr(), out.data_ptr(), P, F, n_seg,
+            stream_ptr(data.device))
     check(err, "segment_sum")
     LAUNCHES += 1
     return out

@@ -40,9 +40,10 @@ def winograd_conv3x3_cuda(x: torch.Tensor, U_hi: torch.Tensor, U_lo: torch.Tenso
     if any(t.data_ptr() % 16 for t in (x, U_hi, U_lo)):
         raise ValueError("winograd_conv3x3_cuda: x, U_hi and U_lo must be 16-byte aligned")
     y = torch.empty((B, H, W, Co), dtype=torch.float32, device=x.device)
-    err = library().cia_winograd_conv3x3(
-        x.data_ptr(), U_hi.data_ptr(), U_lo.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        B, H, W, Ci, Co, stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        err = library().cia_winograd_conv3x3(
+            x.data_ptr(), U_hi.data_ptr(), U_lo.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            B, H, W, Ci, Co, stream_ptr(x.device))
     check(err, "winograd_conv3x3")
     LAUNCHES += 1
     return y

@@ -15,6 +15,10 @@ The regionprops come from one of three routes:
 
 The static capacities and their truncation are kept exactly: they decide
 which cells survive.  Batched over frames.
+
+`extract_cells_chunked` is the host-facing form for one frame: stage A
+through the pixel regionprops, then CLAHE and resize by size bucket; it
+returns the preprocessed cells as numpy.
 """
 
 from __future__ import annotations
@@ -150,3 +154,37 @@ def extract_candidates_from_mask(
         max_area=max_area, max_eccentricity=max_eccentricity,
         min_mean_intensity=min_mean_intensity, min_std_intensity=min_std_intensity)
     return cand, overflow
+
+
+@torch.inference_mode()
+def extract_cells_chunked(labels: torch.Tensor, green: torch.Tensor, chunk: int = 128,
+                          caps: tuple = (64, 96), out_size: int = 64,
+                          clip_limit: float = 0.02, **candidate_kwargs):
+    """One frame's label map (H, W) and raw green channel (H, W) -> (cells
+    (n, out, out) float32 numpy in ascending label order, stats dict of
+    numpy arrays): stage A once, then CLAHE (once a size bucket) and the
+    resize in chunks.  The buckets are `ops.clahe.size_buckets`';
+    the capacity only pads the layout, so the cells do not depend on them."""
+    from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, size_buckets
+    from cell_image_analysis_tpu_torch.ops.resize import resize_cells
+
+    cand = extract_candidates(labels[None], green[None], **candidate_kwargs)
+    n = int(cand.n_valid[0])
+    stats = {k: getattr(cand, k)[0, :n].cpu().numpy()
+             for k in ("label_ids", "area", "eccentricity", "mean_intensity", "std_intensity")}
+    cells = torch.zeros((n, out_size, out_size), dtype=torch.float32, device=green.device)
+    if n == 0:
+        return cells.cpu().numpy(), stats
+    crops = cand.crops[0].float().contiguous()
+    heights, widths = cand.heights[0].int(), cand.widths[0].int()
+    for idx, cap_b, ns_cap in size_buckets(heights, widths, cand.valid[0], caps,
+                                           crops.shape[-1]):
+        if idx.numel() == 0:
+            continue
+        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b, clip_limit=clip_limit,
+                              ns_cap=ns_cap)
+        for start in range(0, idx.numel(), chunk):
+            ids = idx[start:start + chunk]
+            cells[ids] = resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
+                                      out_size=out_size)
+    return cells.cpu().numpy(), stats

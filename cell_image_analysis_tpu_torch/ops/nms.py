@@ -27,7 +27,9 @@ _TWO_PI = 2.0 * math.pi
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """A float32 scalar on `like`'s device, made by a fill: a
+    `torch.tensor(v, device=...)` would copy from the host and hold it up."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def _remainder(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -88,9 +90,16 @@ def _quadrature(dists_i: torch.Tensor, centers_i: torch.Tensor):
 
 
 def overlap_matrix_sparse(centers: torch.Tensor, dists: torch.Tensor, valid: torch.Tensor,
-                          metric: str = "iou", max_pairs: int = 8192):
+                          metric: str = "iou", max_pairs: int | None = 8192):
     """(B, K, K) pairwise overlap over the `max_pairs` closest candidate
-    pairs, and a (B,) flag that more candidate pairs existed than that."""
+    pairs, and a (B,) flag that more candidate pairs existed than that.
+
+    `max_pairs=None` is the exact pair set: every candidate pair, and the
+    flag is never set.  Only candidate pairs carry an overlap, so this
+    stops at the largest count of candidate pairs in a frame instead of
+    integrating all K^2 pairs (K = 1024, B = 16: 25 GB for the quadrature
+    points alone).  It reads that count back, so this branch waits on the
+    host once, and its shapes follow the data."""
     B, K = valid.shape
     areas = polygon_areas(dists)                                # (B, K)
     rmax = torch.amax(dists, dim=-1)
@@ -103,6 +112,9 @@ def overlap_matrix_sparse(centers: torch.Tensor, dists: torch.Tensor, valid: tor
             & (idx[:, None] < idx[None, :]))
 
     masked = torch.where(cand, d2, torch.full_like(d2, math.inf)).reshape(B, K * K)
+    n_cand = cand.reshape(B, -1).sum(dim=1)
+    if max_pairs is None:
+        max_pairs = max(1, int(n_cand.max()))
     max_pairs = min(max_pairs, K * K)
     # lax.top_k(-masked): smallest first, lower index first on ties
     order = torch.sort(masked, dim=1, stable=True)
@@ -140,15 +152,16 @@ def overlap_matrix_sparse(centers: torch.Tensor, dists: torch.Tensor, valid: tor
     O = torch.zeros((B, K + 1, K + 1), dtype=torch.float32, device=valid.device)
     O[bi, ii_s, jj_s] = o
     O[bi, jj_s, ii_s] = o
-    overflow = cand.reshape(B, -1).sum(dim=1) > max_pairs
+    overflow = n_cand > max_pairs
     return O[:, :K, :K], overflow
 
 
 def star_nms(centers: torch.Tensor, dists: torch.Tensor, probs: torch.Tensor,
              valid: torch.Tensor, nms_thresh: float = 0.3, metric: str = "iou",
-             max_pairs: int = 8192):
+             max_pairs: int | None = 8192):
     """Greedy star-polygon NMS on (B, K) candidates.  Returns the keep mask
-    (B, K) and the (B,) pair-budget overflow flag."""
+    (B, K) and the (B,) pair-budget overflow flag.  `max_pairs=None`: every
+    candidate pair (see `overlap_matrix_sparse`)."""
     B, K = probs.shape
     O, overflow = overlap_matrix_sparse(centers, dists, valid, metric=metric,
                                         max_pairs=max_pairs)

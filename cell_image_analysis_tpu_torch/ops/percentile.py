@@ -42,7 +42,7 @@ def percentile_select(x: torch.Tensor, qs: tuple) -> torch.Tensor:
     v = kth_smallest(x, tuple(k for r in rk for k in r[:2]))
     out = []
     for i, (_, _, frac) in enumerate(rk):
-        f = torch.tensor(frac, dtype=torch.float32, device=x.device)
+        f = torch.full((), float(frac), dtype=torch.float32, device=x.device)  # no host copy
         out.append(v[:, 2 * i] * (1.0 - f) + v[:, 2 * i + 1] * f)
     return torch.stack(out, dim=1)
 
@@ -56,5 +56,5 @@ def normalize_percentile(x: torch.Tensor, pmin: float = 3.0, pmax: float = 99.8,
     lohi = percentile_select(xb, (float(pmin), float(pmax)))
     lo = lohi[:, 0].reshape(-1, 1, 1)
     hi = lohi[:, 1].reshape(-1, 1, 1)
-    out = (xb - lo) / (hi - lo + torch.tensor(eps, dtype=torch.float32, device=x.device))
+    out = (xb - lo) / (hi - lo + torch.full((), eps, dtype=torch.float32, device=x.device))
     return out[0] if single else out

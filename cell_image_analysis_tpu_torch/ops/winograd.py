@@ -18,6 +18,8 @@ stages read it (`kernel_filter_layout`).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -27,9 +29,15 @@ CI_ALIGN = 8    # the kernel's input-channel slice (one MMA k-step)
 CO_BLOCK = 32   # the kernel's output-channel block
 
 
+@functools.lru_cache(maxsize=None)
+def _g_matrix(device: torch.device) -> torch.Tensor:
+    """G on `device`, uploaded once: a copy from the host holds the host up."""
+    return torch.tensor(_G, dtype=torch.float32, device=device)
+
+
 def winograd_kernel_transform(W: torch.Tensor) -> torch.Tensor:
     """(3, 3, Ci, Co) HWIO -> (4, 4, Ci, Co) Winograd-domain filter G W G^T."""
-    G = torch.tensor(_G, dtype=torch.float32, device=W.device)
+    G = _g_matrix(W.device)
     return torch.einsum("au,uvio,bv->abio", G, W.float(), G)
 
 

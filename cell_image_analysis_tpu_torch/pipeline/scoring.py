@@ -10,7 +10,11 @@ Counterpart of `cell_image_analysis_tpu/pipeline/scoring.py`:
   ns_cap 12, the full crop capacity at ns_cap 16), CLAHE once a bucket
   (one kernel launch on the GPU), then resize -> `score_cells` per chunk
   of it — returning the same `(scores, stats)` pair as the JAX
-  `score_frames_fused_wait`.
+  `score_frames_fused_wait`.  It is `score_frames_fused_wait` of
+  `score_frames_fused_start`: the first enqueues segmentation and stage A
+  and returns a handle, the second does the host's part, so a caller keeps
+  one batch in flight;
+- `compute_anomaly_scores`: `score_cells` on host cells, as a dict.
 
 Stage A takes one of JAX `_stage_a_one`'s three routes, by the
 segment_fn's flags: boolean masks (`returns_mask`) through the run-length
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from cell_image_analysis_tpu_torch.models.svm import SVMParams, decision_function
-from cell_image_analysis_tpu_torch.ops.clahe import NS_CAP, NS_CAP_16PX, clahe_bucket
+from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, size_buckets
 from cell_image_analysis_tpu_torch.ops.extract import (
     extract_candidates,
     extract_candidates_from_labels_runs,
@@ -140,38 +144,85 @@ def _stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwa
     return cand, ovf
 
 
-def size_buckets(heights: torch.Tensor, widths: torch.Tensor, valid: torch.Tensor,
-                 caps: tuple, full_cap: int) -> list:
-    """The CLAHE size buckets of the (N,) cells: [(cell indices, cap,
-    ns_cap)], each cell in the tightest capacity that fits; cells with a
-    side of 13-15 px need 13-15 tiles on that axis, so they ride the last
-    bucket (the full crop capacity, ns_cap 16)."""
-    all_caps = tuple(c for c in sorted(caps) if c < full_cap) + (full_cap,)
-    ns_ok = (((heights >= 16) | (heights <= 12)) & ((widths >= 16) | (widths <= 12)))
-    buckets = []
-    fits_prev = torch.zeros_like(valid)
-    for cap_b in all_caps[:-1]:
-        fits = (heights <= cap_b) & (widths <= cap_b) & ns_ok
-        buckets.append((valid & fits & ~fits_prev, cap_b, NS_CAP_16PX))
-        fits_prev = fits
-    buckets.append((valid & ~fits_prev, all_caps[-1], NS_CAP))
-    return [(torch.nonzero(mask).flatten(), cap_b, ns_cap) for mask, cap_b, ns_cap in buckets]
-
-
-@torch.inference_mode()
 def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens: torch.Tensor,
                        segment_fn, chunk: int = 256, caps: tuple = (64, 96), min_votes: int = 2,
                        out_size: int = 64, clip_limit: float = 0.02,
                        fallback_segment_fn=None, **candidate_kwargs) -> tuple:
     """Screen a (B, H, W) frame batch on one device; returns (scores dict,
     stats dict) of numpy arrays, as JAX `score_frames_fused_wait`."""
+    return score_frames_fused_wait(score_frames_fused_start(
+        model, params, segs, greens, segment_fn, chunk=chunk, caps=caps, min_votes=min_votes,
+        out_size=out_size, clip_limit=clip_limit, fallback_segment_fn=fallback_segment_fn,
+        **candidate_kwargs))
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t`; from the card it goes into pinned memory without
+    waiting (the caller records an event behind it)."""
+    if t.device.type == "cpu":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+@torch.inference_mode()
+def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
+                             greens: torch.Tensor, segment_fn, chunk: int = 256,
+                             caps: tuple = (64, 96), min_votes: int = 2, out_size: int = 64,
+                             clip_limit: float = 0.02, fallback_segment_fn=None,
+                             **candidate_kwargs) -> dict:
+    """The dispatch half of `score_frames_fused`: enqueues segmentation and
+    stage A of the batch, begins the copies of the small per-cell arrays
+    that the host needs next (overflow flags, heights, widths, valid, the
+    statistics) into pinned memory behind a CUDA event, and returns a
+    pending handle without waiting for them.  `score_frames_fused_wait`
+    takes the handle.  A caller with many batches starts batch k+1 before
+    it waits on batch k, so that the host's part of k overlaps the device's
+    stage A of k+1."""
     cand, ovf = _stage_a(segment_fn, segs, greens, candidate_kwargs)
+    B, ccap, full_cap = cand.crops.shape[:3]
+    flat = [t.reshape(-1) for t in (cand.heights, cand.widths, cand.valid, cand.label_ids,
+                                    cand.area)]
+    ints = _to_host(torch.cat([ovf.reshape(-1).int(), *(t.int() for t in flat)]))
+    floats = _to_host(torch.cat([t.reshape(-1).float() for t in (
+        cand.eccentricity, cand.mean_intensity, cand.std_intensity)]))
+    event = None
+    if segs.device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(segs.device))
+    return dict(
+        model=model, params=params, segs0=segs, greens0=greens, chunk=chunk, caps=caps,
+        min_votes=min_votes, out_size=out_size, clip_limit=clip_limit,
+        fallback_segment_fn=fallback_segment_fn, candidate_kwargs=candidate_kwargs,
+        crops=cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous(),
+        heights=flat[0].int(), widths=flat[1].int(), ints=ints, floats=floats, event=event,
+        shape=(B, ccap, full_cap))
+
+
+@torch.inference_mode()
+def score_frames_fused_wait(pend: dict) -> tuple:
+    """The fetch half of `score_frames_fused`: waits for the handle's host
+    copies, takes the overflow decision (the fallback re-runs the batch
+    synchronously), runs the size-bucket loop (CLAHE, resize, `score_cells`)
+    and fetches the scored rows once.  Returns (scores dict, stats dict) of
+    numpy arrays, as JAX `score_frames_fused_wait`."""
+    if pend["event"] is not None:
+        pend["event"].synchronize()
+    B, ccap, full_cap = pend["shape"]
+    N = B * ccap
+    ints, floats = pend["ints"], pend["floats"]
+    ovf = ints[:B]
+    heights_h, widths_h, valid_h, label_ids, area = (ints[B + k * N:B + (k + 1) * N]
+                                                     for k in range(5))
+    valid_h = valid_h.bool()
     if bool(ovf.any()):
-        if fallback_segment_fn is not None:
-            return score_frames_fused(model, params, segs, greens, fallback_segment_fn,
-                                      chunk=chunk, caps=caps, min_votes=min_votes,
-                                      out_size=out_size, clip_limit=clip_limit,
-                                      **candidate_kwargs)
+        if pend["fallback_segment_fn"] is not None:
+            return score_frames_fused(
+                pend["model"], pend["params"], pend["segs0"], pend["greens0"],
+                pend["fallback_segment_fn"], chunk=pend["chunk"], caps=pend["caps"],
+                min_votes=pend["min_votes"], out_size=pend["out_size"],
+                clip_limit=pend["clip_limit"], **pend["candidate_kwargs"])
         warnings.warn(
             "score_frames_fused: capacity overflow with no fallback_segment_fn — "
             "candidate extraction may have dropped or corrupted cells; pass "
@@ -179,35 +230,30 @@ def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens:
             "backend also max_candidates, raster_m_cap and nms_max_pairs)",
             RuntimeWarning, stacklevel=2)
 
-    B, ccap, full_cap = cand.crops.shape[:3]
-    N = B * ccap
-    crops = cand.crops.reshape(N, full_cap, full_cap).float().contiguous()
-    heights = cand.heights.reshape(-1).int()
-    widths = cand.widths.reshape(-1).int()
-    valid = cand.valid.reshape(-1)
-
-    rows = torch.zeros((N, _FUSED_D), dtype=torch.float32, device=crops.device)
-    for idx, cap_b, ns_cap in size_buckets(heights, widths, valid, caps, full_cap):
+    crops, heights, widths = pend["crops"], pend["heights"], pend["widths"]
+    dev = crops.device
+    chunk = pend["chunk"]
+    rows = torch.zeros((N, _FUSED_D), dtype=torch.float32, device=dev)
+    # the buckets come from the host copies: no wait on the device for them
+    for idx, cap_b, ns_cap in size_buckets(heights_h, widths_h, valid_h, pend["caps"], full_cap):
         if idx.numel() == 0:
             continue
-        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b, clip_limit=clip_limit,
-                              ns_cap=ns_cap)
+        idx = idx.to(dev, non_blocking=True)
+        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b,
+                              clip_limit=pend["clip_limit"], ns_cap=ns_cap)
         for start in range(0, idx.numel(), chunk):
             ids = idx[start:start + chunk]
             eq = eq_all[start:start + chunk]
-            h, w = heights[ids], widths[ids]
-            cells = resize_cells(eq, h, w, out_size=out_size)
-            rows[ids] = _score_rows(score_cells(model, params, cells[..., None],
-                                                min_votes=min_votes))
+            cells = resize_cells(eq, heights[ids], widths[ids], out_size=pend["out_size"])
+            rows[ids] = _score_rows(score_cells(pend["model"], pend["params"], cells[..., None],
+                                                min_votes=pend["min_votes"]))
 
-    pool = torch.nonzero(valid).flatten()
-    stats_t = dict(label_ids=cand.label_ids, area=cand.area, eccentricity=cand.eccentricity,
-                   mean_intensity=cand.mean_intensity, std_intensity=cand.std_intensity)
-    stats = {k: v.reshape(-1)[pool].cpu().numpy() for k, v in stats_t.items()}
-    stats["label_ids"] = stats["label_ids"].astype(np.int32)
-    stats["area"] = stats["area"].astype(np.int32)
-    stats["frame_index"] = (pool // ccap).cpu().numpy()
-    packed = rows[pool].cpu().numpy()
+    pool = torch.nonzero(valid_h).flatten()
+    stats_h = dict(label_ids=label_ids, area=area, eccentricity=floats[:N],
+                   mean_intensity=floats[N:2 * N], std_intensity=floats[2 * N:])
+    stats = {k: v[pool].numpy() for k, v in stats_h.items()}
+    stats["frame_index"] = (pool // ccap).numpy()
+    packed = rows[pool.to(dev, non_blocking=True)].cpu().numpy()   # the one fetch
     if packed.shape[0] == 0:
         return {}, stats
     out = {
@@ -225,3 +271,30 @@ def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens:
     for name in ("conservative", "moderate", "ensemble", "fft"):
         out[f"{name}_anomaly_rate"] = float(np.mean(out[f"{name}_predictions"] == -1))
     return out, stats
+
+
+_SCORE_KEYS = ("reconstruction_mse", "reconstruction_mae", "conservative_predictions",
+               "moderate_predictions", "conservative_scores", "moderate_scores",
+               "ensemble_predictions", "fft_predictions", "fft_scores")
+
+
+def compute_anomaly_scores(model, params: ScoringParams, cells, valid=None,
+                           min_votes: int = 2) -> dict:
+    """`score_cells` on (n, 64, 64) or (n, 64, 64, 1) host cells, on the
+    device of `params`, as a dict of numpy arrays with the reference's
+    schema plus the ensemble and FFT entries.  `valid` optionally masks
+    padding; rates are over the valid entries only."""
+    X = torch.as_tensor(np.asarray(cells, dtype=np.float32), device=params.pca_mean.device)
+    if X.dim() == 3:
+        X = X[..., None]
+    if X.shape[0] == 0:
+        return {}
+    s = score_cells(model, params, X, min_votes=min_votes)
+    v = np.ones(X.shape[0], bool) if valid is None else np.asarray(valid, bool)
+    n = max(int(v.sum()), 1)
+    out = {k: getattr(s, k).cpu().numpy()[v] for k in _SCORE_KEYS}
+    out["fft_features"] = s.fft.cpu().numpy()[v]
+    for name in ("conservative", "moderate", "ensemble", "fft"):
+        pred = getattr(s, f"{name}_predictions").cpu().numpy()
+        out[f"{name}_anomaly_rate"] = float(np.sum((pred == -1) & v) / n)
+    return out

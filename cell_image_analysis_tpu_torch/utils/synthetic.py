@@ -9,6 +9,8 @@ them are larger, brighter and lumpier.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -110,3 +112,25 @@ def make_frame_instances(rng: np.random.Generator, size: int = 512, n_cells: int
     frame[..., 0] = background
     frame += rng.normal(0, noise, frame.shape)
     return np.clip(frame, 0, 65535).astype(np.uint16), labels
+
+
+def make_dataset(
+    folder: str,
+    n_frames: int = 4,
+    size: int = 512,
+    n_cells: int = 25,
+    mutant_fraction: float = 0.0,
+    seed: int = 0,
+) -> list[str]:
+    """Write n_frames TIFFs into `folder`; returns the file paths."""
+    from cell_image_analysis_tpu_torch.io.tiff import imwrite
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n_frames):
+        frame = make_frame(rng, size=size, n_cells=n_cells, mutant_fraction=mutant_fraction)
+        p = os.path.join(folder, f"frame_{i:03d}.tif")
+        imwrite(p, frame)
+        paths.append(p)
+    return paths

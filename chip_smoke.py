@@ -53,7 +53,36 @@ Phases (any failure exits non-zero before the last line is printed):
    within 1e-4, except the listed cells of polygons that the scatter
    rasterizer clips to its patch; then a run at an NMS budget of 64
    pairs must fall back to the twin and equal it;
-7. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+7. screening from files at full width: four sample folders of synthetic
+   TIFFs (`wildtype`, 40 frames of 1024^2, so batches of 16, 16 and 8 with
+   two in flight; `mutantA`, 8 frames and a corrupt file; `odd`, 2 frames
+   of 1004 x 1020; `empty`), written in worker processes while phases 1-3
+   run, go through `ProductionMutantScreening(assets/screening_store_synthetic,
+   PipelineConfig())` with the bundled U-Net at the default capacities.
+   The three samples with cells come back, the skip messages are printed,
+   the output files exist (the three figures only where matplotlib is
+   installed: without it the screener is told to leave them out, which the
+   log says),
+   per-file counts sum to `total_cells`, and `wildtype`'s scores equal, bit
+   for bit, `score_frames_fused` called on the same decoded frames in the
+   same three batches; Winograd, segment sum and CLAHE were launched.
+   Those direct calls, and one on `odd`, run with every call of a kernel's
+   wrapper held against the kernel's plain version on the same tensors
+   (`_HeldAgainstPlain`), so each kernel is checked at the screener's own
+   shapes, which are not phase 2's: B = 16, 8 and 2, frames padded to
+   1008 x 1024, label capacity 1024, 16 x 512 crop slots, the exact twin's
+   pixel-regionprops table.  Cells/s, the stage report and the TIFF decode
+   seconds of the timed run are printed, and the host waits inside
+   `score_frames_fused_start`, counted in a second pass over `wildtype`;
+8. the threshold screener on 16 of those frames; the same 16 frames
+   through `score_frames_fused` and `extract_quality_cells` on one frame
+   with each backend, again with every kernel call held against its plain
+   version (the threshold backend's goes through the CC kernel), and
+   `extract_quality_cells` on the card against the same call on the CPU;
+9. `python -m cell_image_analysis_tpu_torch.cli screen` in a subprocess on
+   `mutantA` (exit 0, summary CSV), and on a model directory that does not
+   exist (exit code not 0);
+10. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -62,13 +91,18 @@ It imports no JAX.  Needs the rest of the repository beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -92,7 +126,13 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9}
+STORE = os.path.join(REPO, "assets", "screening_store_synthetic")
+# phase 7's sample folders: (name, frames, seed, mutant_fraction, crop)
+SAMPLES = (("wildtype", 40, 21, 0.0, None), ("mutantA", 8, 22, 0.7, None),
+           ("odd", 2, 23, 0.0, (1004, 1020)))
+CHUNK_FRAMES = 8  # frames a worker process writes
+FRAME_SIZE, FRAME_CELLS = 1024, 80  # phase 7's frames, as the bench's
 
 
 def log(msg: str) -> None:
@@ -728,6 +768,445 @@ def phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model
         f"it; {t_forced:.3f} s wall")
 
 
+def write_frames(folder: str, first: int, n: int, seed: int, mutant_fraction: float,
+                 crop, size: int, n_cells: int) -> int:
+    """Worker process: frames `first .. first + n - 1` of a sample folder
+    (`make_dataset` with its own seed into a scratch folder, renamed),
+    cropped to `crop` = (h, w) if given."""
+    from cell_image_analysis_tpu_torch.io.tiff import imread, imwrite
+    from cell_image_analysis_tpu_torch.utils.synthetic import make_dataset
+
+    scratch = f"{folder}.part{first}"
+    for i, path in enumerate(make_dataset(scratch, n_frames=n, size=size, n_cells=n_cells,
+                                          mutant_fraction=mutant_fraction, seed=seed)):
+        target = os.path.join(folder, f"frame_{first + i:03d}.tif")
+        if crop is not None:
+            imwrite(target, imread(path)[:crop[0], :crop[1]])
+        else:
+            os.replace(path, target)
+    shutil.rmtree(scratch)
+    return n
+
+
+def start_sample_folders(root: str):
+    """Start the worker processes that write phase 7's folders under
+    `root`; returns (pool, futures, {sample: folder}).  A folder of more
+    than CHUNK_FRAMES frames is written in chunks, the k-th with seed
+    `seed + 1000 * k`."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(max_workers=max(1, min(6, (os.cpu_count() or 2) - 2)),
+                               mp_context=multiprocessing.get_context("spawn"))
+    folders, futures = {}, []
+    for name, n, seed, mutant, crop in SAMPLES:
+        folders[name] = os.path.join(root, name)
+        os.makedirs(folders[name])
+        for k, first in enumerate(range(0, n, CHUNK_FRAMES)):
+            futures.append(pool.submit(write_frames, folders[name], first,
+                                       min(CHUNK_FRAMES, n - first), seed + 1000 * k, mutant,
+                                       crop, FRAME_SIZE, FRAME_CELLS))
+    folders["empty"] = os.path.join(root, "empty")
+    os.makedirs(folders["empty"])
+    with open(os.path.join(folders["mutantA"], "corrupt.tif"), "wb") as f:
+        f.write(b"not a tiff at all")
+    return pool, futures, folders
+
+
+class _HeldAgainstPlain:
+    """While active, every call the port makes of a kernel's wrapper is held
+    against the kernel's plain version on the same tensors, so each kernel
+    is checked at the very shapes and data a path gives it: segment sum,
+    CLAHE and connected components bit-equal, Winograd
+    max|y - ref| / max|ref| < 1e-5.  The path gets the kernel's result.  The
+    plain versions launch no kernel of the port, so the launch counts see
+    the path's launches only.  `held` maps a kernel to {input signature:
+    calls}."""
+
+    def __init__(self, torch):
+        from cell_image_analysis_tpu_torch.models import unet
+        from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum
+
+        self.torch = torch
+        self.held = {"winograd_conv3x3": {}, "segment_sum": {}, "clahe_cells": {},
+                     "cc_tile_labels": {}}
+        self.max_rel_err = 0.0
+        self._targets = ((segsum, "segment_sums_cuda", self._segsum),
+                         (clahe_kernel, "clahe_cells_cuda", self._clahe),
+                         (cc, "label_components_cuda", self._cc),
+                         (unet, "winograd_conv3x3", self._winograd))
+        self._real = {}
+
+    def __enter__(self):
+        for module, name, checker in self._targets:
+            self._real[name] = getattr(module, name)
+            setattr(module, name, checker)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, _ in self._targets:
+            setattr(module, name, self._real[name])
+
+    def _note(self, kernel: str, signature: tuple) -> None:
+        self.held[kernel][signature] = self.held[kernel].get(signature, 0) + 1
+
+    def _segsum(self, seg, data, n_seg):
+        from cell_image_analysis_tpu_torch.ops.segsum import segment_sums_plain
+
+        got = self._real["segment_sums_cuda"](seg, data, n_seg)
+        if not self.torch.equal(got, segment_sums_plain(seg, data, n_seg)):
+            raise AssertionError(f"segment_sum {tuple(data.shape)} -> {n_seg} segments differs "
+                                 "from its plain version on a path's own table")
+        self._note("segment_sum", (tuple(data.shape), n_seg))
+        return got
+
+    def _clahe(self, crops, ids, heights, widths, cap, **kw):
+        from cell_image_analysis_tpu_torch.ops.clahe import clahe_cells_plain
+
+        got = self._real["clahe_cells_cuda"](crops, ids, heights, widths, cap, **kw)
+        idx = ids.long()
+        ref = clahe_cells_plain(crops[idx][:, :cap, :cap], heights[idx], widths[idx], **kw)
+        if not self.torch.equal(got, ref):
+            raise AssertionError(f"clahe_cells, {ids.numel()} of {crops.shape[0]} slots at cap "
+                                 f"{cap}: {int((got != ref).sum())} values differ from the "
+                                 "plain version on a path's own bucket")
+        self._note("clahe_cells", (tuple(crops.shape), cap, kw.get("ns_cap")))
+        return got
+
+    def _cc(self, mask, connectivity):
+        from cell_image_analysis_tpu_torch.ops.cc import label_components_plain
+
+        got, count = self._real["label_components_cuda"](mask, connectivity)
+        ref, ref_count = label_components_plain(mask, connectivity)
+        if not (self.torch.equal(got, ref) and self.torch.equal(count, ref_count)):
+            raise AssertionError(f"label_components {tuple(mask.shape)}, connectivity "
+                                 f"{connectivity}, differs from its plain version")
+        self._note("cc_tile_labels", (tuple(mask.shape), connectivity))
+        return got, count
+
+    def _winograd(self, x, W, bias=None):
+        from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3_plain
+
+        y = self._real["winograd_conv3x3"](x, W, bias)
+        ref = winograd_conv3x3_plain(x, W, bias)
+        rel = float((y - ref).abs().max()) / float(ref.abs().max())
+        if not rel < 1e-5:
+            raise AssertionError(f"winograd {tuple(x.shape)} -> {W.shape[-1]}: relative error "
+                                 f"{rel:.3e} >= 1e-5 on a path's own activations")
+        self.max_rel_err = max(self.max_rel_err, rel)
+        self._note("winograd_conv3x3", (tuple(x.shape), W.shape[-1]))
+        return y
+
+    def report(self, tag: str, needed: tuple) -> None:
+        """Log what was held; fail if a kernel in `needed` was held no time."""
+        for kernel, seen in self.held.items():
+            if not seen:
+                if kernel in needed:
+                    raise AssertionError(f"{tag} no call of {kernel} was held against its "
+                                         "plain version")
+                continue
+            shapes = "; ".join(f"{sig} x{n}" for sig, n in sorted(seen.items(), key=str))
+            extra = (f", max relative error {self.max_rel_err:.3e} (gate 1e-5)"
+                     if kernel == "winograd_conv3x3" else ", bit-equal")
+            log(f"{tag} {kernel}: {sum(seen.values())} calls held against the plain version at "
+                f"the path's own inputs{extra}: {shapes}")
+
+
+class _CountedStart:
+    """Stands in for `score_frames_fused_start` in the screener's module:
+    the same call under `torch.cuda.set_sync_debug_mode("warn")`, counting
+    the host waits that the call makes."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls, self.waits, self.where = torch, fn, 0, 0, {}
+
+    def __call__(self, *args, **kwargs):
+        torch = self.torch
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = self.fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        self.calls += 1
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                self.waits += 1
+                key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+                self.where[key] = self.where.get(key, 0) + 1
+        return out
+
+
+def _per_file_counts(printed: str) -> dict:
+    """{sample: [cells of each file]} from the screener's console lines."""
+    counts, sample = {}, None
+    for line in printed.splitlines():
+        if line.startswith("Processing "):
+            sample = line[len("Processing "):].rstrip(".")
+            counts[sample] = []
+        elif sample and ".tif: " in line and line.rstrip().endswith(" cells"):
+            counts[sample].append(int(line.split(": ")[1].split()[0]))
+    return counts
+
+
+def phase_screening(torch, dev, unet_vars, folders: dict, out_root: str, figures: bool):
+    from cell_image_analysis_tpu_torch.config import OUTPUT_FILES_SCREENING, PipelineConfig
+    from cell_image_analysis_tpu_torch.io.ingest import FrameStream, list_tiffs
+    from cell_image_analysis_tpu_torch.models.stardist import predict_instances
+    from cell_image_analysis_tpu_torch.pipeline import screening
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+
+    screener = screening.ProductionMutantScreening(STORE, PipelineConfig(), unet_vars)
+    if screener.device.type != dev.type:
+        raise AssertionError(f"[7] the screener's default device is {screener.device}")
+    out = os.path.join(out_root, "screen_stardist")
+    twin = screener._segment_fallback = _Recording(screener._segment_fallback)
+    n_batches = sum(-(-n // 16) for _, n, *_ in SAMPLES)   # one shape a folder
+    printed = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    try:   # the timed run: nothing of the smoke's stands in the screener's way
+        with contextlib.redirect_stdout(printed):
+            (results, detailed), t_all = _timed(torch, lambda: screener.screen_mutant_samples(
+                folders, out, figures=figures))
+    finally:
+        log(printed.getvalue().rstrip())
+    launches = _read_launches()
+    printed = printed.getvalue()
+    smi = smi_line()
+    meter_line = (f"[7] screening cells/s (ThroughputMeter, {screener.meter.items} cells, "
+                  f"{screener.meter.seconds:.3f} s): {screener.meter.rate:.1f} [{smi}]")
+    timer_line = f"[7] {screener.timer.report().replace(chr(10), ' |')} [{smi}]"
+    decode_line = (f"[7] TIFF decode seconds, summed over the ingest workers: "
+                   f"{screener.decode_seconds:.3f} [{smi}]")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    fallback_runs = twin.calls
+
+    if set(results) != {"wildtype", "mutantA", "odd"}:
+        raise AssertionError(f"[7] samples with results: {sorted(results)}")
+    for needle in ("No .tif files found", "Error processing", "corrupt.tif"):
+        if needle not in printed:
+            raise AssertionError(f"[7] {needle!r} was not printed")
+    for name in OUTPUT_FILES_SCREENING:
+        if name.endswith(".png") and not figures:
+            continue
+        if not os.path.getsize(os.path.join(out, name)) > 0:
+            raise AssertionError(f"[7] output file {name} is empty")
+    log(f"[7] output files present: {'all of' if figures else 'the CSVs and the report of'} "
+        f"OUTPUT_FILES_SCREENING ({'figures asserted' if figures else 'no matplotlib: figures not asserted'})")
+    per_file = _per_file_counts(printed)
+    for name, n_files, *_ in SAMPLES:
+        if len(per_file[name]) != n_files or sum(per_file[name]) != results[name]["total_cells"]:
+            raise AssertionError(f"[7] {name}: per-file counts {per_file[name]} vs total "
+                                 f"{results[name]['total_cells']}")
+        if results[name]["total_cells"] < 10 * n_files:
+            raise AssertionError(f"[7] {name}: only {results[name]['total_cells']} cells")
+    missing = [k for k in ("winograd_conv3x3", "segment_sum", "clahe_cells") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"[7] kernels of the screening path were not launched: {missing}")
+    for k in ("mse", "conservative_score", "moderate_score"):
+        if not np.all(np.isfinite([row[k] for row in detailed])):
+            raise AssertionError(f"[7] non-finite {k}")
+
+    # wildtype again through the in-flight path, and directly: the same
+    # decoded frames in the same batches through score_frames_fused
+    # (that second pass, not the timed run, counts the host waits in _start)
+    files = list_tiffs(folders["wildtype"])
+    counted = _CountedStart(torch, screening.score_frames_fused_start)
+    screening.score_frames_fused_start = counted
+    try:
+        merged, counts, _ = screener._score_sample_frames(files)
+    finally:
+        screening.score_frames_fused_start = counted.fn
+
+    def direct_batches(folder: str) -> tuple:
+        """A folder's decoded frames, the `score_frames_fused` result of each
+        batch of 16 with the screener's own arguments, and the last batch's
+        seg channels on the card."""
+        frames = [(seg, green) for _, seg, green in FrameStream(list_tiffs(folder))]
+        out = []
+        for at in range(0, len(frames), 16):
+            segs = screener.frames_to_device([f[0] for f in frames[at:at + 16]])
+            greens = screener.frames_to_device([f[1] for f in frames[at:at + 16]])
+            seg_fn, kwargs = screener.fused_arguments(*segs.shape[1:])
+            out.append(score_frames_fused(screener.model, screener.scoring_params, segs,
+                                          greens, seg_fn, **kwargs))
+        return frames, out, segs
+
+    # The direct calls run with every kernel call held against its plain
+    # version: the screener's own shapes (16 x 512 crop slots, label capacity
+    # 1024, B = 16, 8 and 2, 1004 x 1020 frames padded to 1008 x 1024) on
+    # both the main route and the exact twin that every overflow re-runs
+    # through (its pixel-regionprops table, its crops).
+    with _HeldAgainstPlain(torch) as held:
+        frames, direct, segs = direct_batches(folders["wildtype"])
+        _, odd_direct, _ = direct_batches(folders["odd"])
+    held.report("[7]", needed=("winograd_conv3x3", "segment_sum", "clahe_cells"))
+    if len(odd_direct[0][1]["area"]) != results["odd"]["total_cells"]:
+        raise AssertionError("[7] odd: the held direct call found other cells than the screener")
+    if SAMPLES[0][:2] == ("wildtype", 40) and [len(st["frame_index"]) > 0 for _, st in direct] \
+            != [True] * 3:
+        raise AssertionError("[7] wildtype did not make three batches with cells")
+    for k, v in merged.items():
+        if k.endswith("_anomaly_rate") or k == "_frame_names":
+            continue
+        if not np.array_equal(v, np.concatenate([s[k] for s, _ in direct])):
+            raise AssertionError(f"[7] wildtype {k}: the screener differs from direct "
+                                 "score_frames_fused calls")
+    direct_counts = []
+    for (_, st), at in zip(direct, range(0, len(frames), 16)):
+        direct_counts += [int((st["frame_index"] == i).sum())
+                          for i in range(len(frames[at:at + 16]))]
+    if counts != direct_counts or counts != per_file["wildtype"]:
+        raise AssertionError("[7] wildtype per-file counts differ between the screener and "
+                             "direct calls")
+    rows = [r for r in detailed if r["sample_name"] == "wildtype"]
+    if [r["mse"] for r in rows] != [float(v) for v in merged["reconstruction_mse"]]:
+        raise AssertionError("[7] wildtype: the report's rows differ from a second screening")
+    n_cells = sum(r["total_cells"] for r in results.values())
+    log(f"[7] wildtype: {len(rows)} cells in {len(direct)} batches; every score array and "
+        "the per-file counts equal, bit for bit, direct score_frames_fused calls on the same "
+        "decoded frames")
+    log("[7] rates: " + "; ".join(
+        f"{name} " + ", ".join(f"{k} {r[f'{k}_anomaly_rate']:.4f}"
+                               for k in ("conservative", "moderate", "ensemble", "fft"))
+        for name, r in results.items()))
+    log(f"[7] launches while screening: {launches}; peak device memory {peak_gib:.2f} GiB")
+    with torch.inference_mode():
+        _, det = predict_instances(segs, screener._segment.model, screener._segment.cfg)
+    log(f"[7] batches that re-ran through the exact twin: {fallback_runs} of {n_batches}; "
+        f"overflow flags of wildtype's last batch ({segs.shape[0]} frames): NMS pair budget "
+        f"{int(det.nms_overflow.sum())}, raster tile cap {int(det.raster_overflow.sum())}, "
+        f"candidate cap {int(det.cand_overflow.sum())}")
+    log(meter_line)
+    log(f"[7] screen_mutant_samples wall (reports included): {t_all:.3f} s, {n_cells} cells "
+        f"[{smi}]")
+    log(timer_line)
+    log(f"[7] host waits inside score_frames_fused_start (counted in a second pass over "
+        f"wildtype, not in the timed run): {counted.waits} in {counted.calls} calls, at "
+        f"{counted.where} [{smi}]")
+    log(decode_line)
+    return launches
+
+
+def _cells_close(got, ref, what: str, allowed: int) -> None:
+    """Two `extract_quality_cells` results: the same number of cells; cells
+    of equal area within TOL; at most `allowed` cells whose area differs
+    (label pixels at a polygon's knife edge)."""
+    (cells, stats), (cells_c, stats_c) = got, ref
+    if len(cells) != len(cells_c) or len(cells) < 10:
+        raise AssertionError(f"[8] {what}: {len(cells)} cells on the card, {len(cells_c)} "
+                             "on the CPU")
+    same = np.array([a["area"] == b["area"] for a, b in zip(stats, stats_c)])
+    worst = float(np.abs(cells[same] - cells_c[same]).max())
+    log(f"[8] extract_quality_cells, {what}: {len(cells)} cells on the card and on the CPU, "
+        f"max difference {worst:.3e}; cells whose area differs: {int((~same).sum())}")
+    if worst > TOL or int((~same).sum()) > allowed:
+        raise AssertionError(f"[8] {what}: the card's cells differ from the CPU's")
+
+
+def phase_threshold_screener(torch, dev, unet_vars, folders: dict, out_root: str,
+                             figures: bool) -> None:
+    import dataclasses
+
+    from cell_image_analysis_tpu_torch.config import PipelineConfig, SegConfig
+    from cell_image_analysis_tpu_torch.io.ingest import list_tiffs, split_channels
+    from cell_image_analysis_tpu_torch.io.tiff import imread
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+    from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
+
+    files = list_tiffs(folders["wildtype"])[:16]
+    cut = os.path.join(out_root, "wildtype16")
+    os.makedirs(cut)
+    for path in files:
+        os.link(path, os.path.join(cut, os.path.basename(path)))
+    cfg = dataclasses.replace(PipelineConfig(), seg=SegConfig(backend="threshold"))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        screener = ProductionMutantScreening(STORE, cfg)
+        cpu = ProductionMutantScreening(STORE, cfg, device="cpu")
+    _reset_launches()
+    with contextlib.redirect_stdout(printed):
+        (results, _), t_all = _timed(torch, lambda: screener.screen_mutant_samples(
+            {"wildtype": cut}, os.path.join(out_root, "screen_threshold"), figures=figures))
+    launches = _read_launches()
+    r = results["wildtype"]
+    if r["total_cells"] < 10 * len(files) or sum(_per_file_counts(printed.getvalue())["wildtype"]) \
+            != r["total_cells"]:
+        raise AssertionError(f"[8] threshold screener: {r['total_cells']} cells")
+    if launches["segment_sum"] <= 0 or launches["clahe_cells"] <= 0:
+        raise AssertionError(f"[8] threshold screener launched {launches}")
+    log(f"[8] threshold screener, {len(files)} frames: {r['total_cells']} cells, "
+        f"{screener.meter.rate:.1f} cells/s, {t_all:.3f} s wall with reports; rates "
+        f"conservative {r['conservative_anomaly_rate']:.4f}, moderate "
+        f"{r['moderate_anomaly_rate']:.4f}; launches {launches} [{smi_line()}]")
+
+    # the same 16 frames once more, directly, and one frame through
+    # extract_quality_cells, with every kernel call held against its plain
+    # version: the mask route's run table and crops at the screener's
+    # capacities, the CC kernel and the pixel regionprops of the label route
+    decoded = [split_channels(imread(path)) for path in files]
+    seg, green = decoded[0]
+    seg_fn, kwargs = screener.fused_arguments(*seg.shape)
+    with _HeldAgainstPlain(torch) as held:
+        direct = score_frames_fused(screener.model, screener.scoring_params,
+                                    screener.frames_to_device([d[0] for d in decoded]),
+                                    screener.frames_to_device([d[1] for d in decoded]),
+                                    seg_fn, **kwargs)
+        _reset_launches()
+        got = screener.extract_quality_cells(seg, green)
+    launches = _read_launches()
+    held.report("[8]", needed=("segment_sum", "clahe_cells", "cc_tile_labels"))
+    if len(direct[1]["area"]) != r["total_cells"]:
+        raise AssertionError("[8] the held direct call found other cells than the screener")
+    if launches["cc_tile_labels"] <= 0 or launches["clahe_cells"] <= 0:
+        raise AssertionError(f"[8] extract_quality_cells (threshold) launched {launches}")
+    _cells_close(got, cpu.extract_quality_cells(seg, green),
+                 f"threshold backend (launches {launches})", allowed=0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        star = ProductionMutantScreening(STORE, PipelineConfig(), unet_vars)
+        star_cpu = ProductionMutantScreening(STORE, PipelineConfig(), unet_vars, device="cpu")
+    _reset_launches()
+    with _HeldAgainstPlain(torch) as held:
+        got = star.extract_quality_cells(seg, green)
+    launches = _read_launches()
+    held.report("[8] StarDist extract_quality_cells,",
+                needed=("winograd_conv3x3", "segment_sum", "clahe_cells"))
+    if launches["winograd_conv3x3"] <= 0 or launches["segment_sum"] <= 0:
+        raise AssertionError(f"[8] extract_quality_cells (StarDist) launched {launches}")
+    _cells_close(got, star_cpu.extract_quality_cells(seg, green),
+                 f"StarDist backend (launches {launches})", allowed=2)
+    scores = star.compute_anomaly_scores(got[0])
+    if scores["reconstruction_mse"].shape != (len(got[0]),) or not np.all(
+            np.isfinite(scores["conservative_scores"])):
+        raise AssertionError("[8] compute_anomaly_scores: bad shape or non-finite values")
+    log(f"[8] compute_anomaly_scores on those {len(got[0])} cells: conservative rate "
+        f"{scores['conservative_anomaly_rate']:.4f}, ensemble {scores['ensemble_anomaly_rate']:.4f}")
+
+
+def phase_cli(folders: dict, out_root: str, figures: bool) -> None:
+    out = os.path.join(out_root, "cli")
+    base = [sys.executable, "-m", "cell_image_analysis_tpu_torch.cli", "screen", "--sample",
+            f"mutantA={folders['mutantA']}", *([] if figures else ["--no-figures"])]
+    t0 = time.perf_counter()
+    done = subprocess.run([*base, "--models", STORE, "--output", out], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode != 0 or not os.path.exists(os.path.join(out, "screening_summary.csv")):
+        raise AssertionError(f"[9] cli screen exited {done.returncode}:\n{done.stdout[-2000:]}\n"
+                             f"{done.stderr[-2000:]}")
+    summary = done.stdout.split("QUICK SUMMARY:")[1].strip().splitlines()[-1]
+    log(f"[9] cli screen on mutantA: exit 0 in {time.perf_counter() - t0:.1f} s, summary CSV "
+        f"present; {summary}")
+    bad = subprocess.run([*base, "--models", os.path.join(out_root, "no_such_models"),
+                          "--output", os.path.join(out_root, "cli_bad")], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    if bad.returncode == 0:
+        raise AssertionError("[9] cli screen with a missing model directory exited 0")
+    log(f"[9] cli screen with a missing model directory: exit {bad.returncode} "
+        f"({bad.stderr.strip().splitlines()[-1][:120]})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(str(p) for p in sorted(ALL_PHASES)),
@@ -751,41 +1230,70 @@ def main() -> int:
 
     if 0 in phases:
         phase_env(torch)
-    if 1 in phases:
-        phase_build()
-    segs = greens = main_a = None
-    if phases & {2, 3, 5, 6}:
-        segs, greens = make_frames(torch, dev)
-    if phases & {2, 3}:
-        from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+    figures = importlib.util.find_spec("matplotlib") is not None
+    log("[0] report packages: " + ", ".join(
+        f"{m} {'importable' if importlib.util.find_spec(m) else 'not installed'}"
+        for m in ("pandas", "matplotlib", "seaborn")))
+    tmp_root = tempfile.mkdtemp(prefix="chip_smoke_")
+    pool = None
+    try:
+        if phases & {7, 8, 9}:
+            # the sample folders are written while phases 1-3 run
+            pool, futures, folders = start_sample_folders(tmp_root)
+        if 1 in phases:
+            phase_build()
+        segs = greens = main_a = None
+        if phases & {2, 3, 5, 6}:
+            segs, greens = make_frames(torch, dev)
+        if phases & {2, 3}:
+            from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
 
-        stardist = StarDistBackend(unet_vars, seg_cfg, device=dev)
-        main_a = stage_a_buckets(torch, stardist, segs, greens, stage_a)
-        main_a.update(labels=stardist(segs)[0], segs=segs)   # segment sum's input
-    kernels = {}
-    if 2 in phases:
-        from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
-
-        thresh_a = stage_a_buckets(torch, ThresholdBackend(), segs, greens, dict(
-            {k: v for k, v in THRESH_KW.items() if k not in ("chunk", "caps")}, rcap=32))
-        kernels = phase_kernels(torch, dev, unet_vars, main_a, thresh_a)
-        del thresh_a
-    launches, main_result, backend = {}, None, None
-    if 3 in phases:
-        n_buckets = sum(1 for ids, _, _ in main_a["buckets"] if ids.numel())
-        launches, main_result, backend = phase_main_path(torch, dev, unet_vars, seg_cfg,
-                                                         stage_a, segs, greens, n_buckets)
-    if 4 in phases:
-        phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a)
-    params_model = load_scoring_params(device=dev)
-    if 5 in phases:
-        launches_a, launches_b = phase_threshold(torch, dev, segs, greens, params_model)
-        launches["cc_tile_labels"] = launches_b["cc_tile_labels"]
+            stardist = StarDistBackend(unet_vars, seg_cfg, device=dev)
+            main_a = stage_a_buckets(torch, stardist, segs, greens, stage_a)
+            main_a.update(labels=stardist(segs)[0], segs=segs)   # segment sum's input
+        kernels = {}
         if 2 in phases:
-            kernels["clahe_cells"]["threshold_launches"] = launches_a["clahe_cells"]
-    if 6 in phases and 3 in phases:
-        phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
-                   main_result)
+            from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
+
+            thresh_a = stage_a_buckets(torch, ThresholdBackend(), segs, greens, dict(
+                {k: v for k, v in THRESH_KW.items() if k not in ("chunk", "caps")}, rcap=32))
+            kernels = phase_kernels(torch, dev, unet_vars, main_a, thresh_a)
+            del thresh_a
+        launches, main_result, backend = {}, None, None
+        if 3 in phases:
+            n_buckets = sum(1 for ids, _, _ in main_a["buckets"] if ids.numel())
+            launches, main_result, backend = phase_main_path(torch, dev, unet_vars, seg_cfg,
+                                                             stage_a, segs, greens, n_buckets)
+        if 4 in phases:
+            phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a)
+        params_model = load_scoring_params(device=dev)
+        if 5 in phases:
+            launches_a, launches_b = phase_threshold(torch, dev, segs, greens, params_model)
+            launches["cc_tile_labels"] = launches_b["cc_tile_labels"]
+            if 2 in phases:
+                kernels["clahe_cells"]["threshold_launches"] = launches_a["clahe_cells"]
+        if 6 in phases and 3 in phases:
+            phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
+                       main_result)
+        del segs, greens, main_a, main_result
+        torch.cuda.empty_cache()
+        screening_launches = {}
+        if pool is not None:
+            t0 = time.perf_counter()
+            n_written = sum(f.result() for f in futures)
+            log(f"[7] {n_written} frames in {sorted(folders)} were written by worker "
+                f"processes; waited {time.perf_counter() - t0:.1f} s more for them")
+        if 7 in phases:
+            screening_launches = phase_screening(torch, dev, unet_vars, folders, tmp_root,
+                                                 figures)
+        if 8 in phases:
+            phase_threshold_screener(torch, dev, unet_vars, folders, tmp_root, figures)
+        if 9 in phases:
+            phase_cli(folders, tmp_root, figures)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp_root, ignore_errors=True)
     if phases != ALL_PHASES:
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -803,13 +1311,15 @@ def main() -> int:
     # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
     # phase 5 (b), the label route); `launches_per_batch`: the kernel
     # launches on the card they make (a CC call is the module's
-    # KERNELS_PER_CALL); `ms` is the
+    # KERNELS_PER_CALL); `screening_launches`: wrapper calls while phase 7
+    # screened its folders; `ms` is the
     # kernel's device time (torch.profiler), `event_ms` one event-timed
     # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
     modules = _kernel_modules()
     rows = [dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=rep,
                  launches=launches[name],
                  launches_per_batch=launches[name] * getattr(modules[name], "KERNELS_PER_CALL", 1),
+                 screening_launches=screening_launches[name],
                  **kernels[name])
             for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))

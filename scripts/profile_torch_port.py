@@ -3,10 +3,13 @@
 
     python3 scripts/profile_torch_port.py [--backend stardist|threshold] [--frames 16]
                                           [--size 1024] [--trace PATH] [--src DIR]
+                                          [--capacities bench|screener] [--pipeline N]
 
 Screens the bench's synthetic frames (seed 7, 80 cells per 1024^2 frame)
 through `score_frames_fused` at the bench's settings for the backend
-once to warm up, then:
+(`--capacities screener`: at the capacities `ProductionMutantScreening`
+uses by default, 1024 candidates, raster cap and cell capacity 512, label
+capacity 1024) once to warm up, then:
 
 1. times the stages of one batch with a host clock around synchronized
    calls (best of 3), the CLAHE -> resize -> scoring bucket loop being
@@ -23,7 +26,11 @@ once to warm up, then:
    (best of 3), with the number of CLAHE calls;
 2. traces one full run with `torch.profiler` and prints the device time
    by kernel, the summed device time against the wall time (the device's
-   busy share), and with `--trace` writes the Chrome trace there.
+   busy share), and with `--trace` writes the Chrome trace there;
+3. with `--pipeline N`: screens N batches (the same frames N times) one
+   at a time (`wait(start())` each) and with one batch in flight (start
+   k+1, then wait k, as the screener does), in turns, best of 3 each, and
+   the host's time inside the `start` and the `wait` calls.
 
 `--frames-npy PATH` keeps the frames between runs.  `--src DIR` profiles
 the `cell_image_analysis_tpu_torch` package of another checkout (an
@@ -106,6 +113,9 @@ def main() -> int:
     ap.add_argument("--trace", help="write the torch.profiler Chrome trace to this path")
     ap.add_argument("--frames-npy", help="reuse the frames saved at this path (made and saved "
                                          "there when it does not exist)")
+    ap.add_argument("--capacities", choices=("bench", "screener"), default="bench")
+    ap.add_argument("--pipeline", type=int, default=0, metavar="N",
+                    help="also time N batches one at a time and with one in flight")
     ap.add_argument("--src", default=REPO,
                     help="checkout whose cell_image_analysis_tpu_torch is profiled")
     args = ap.parse_args()
@@ -152,17 +162,38 @@ def main() -> int:
     segs = torch.tensor(frames[..., 2].astype(np.float32), device=dev)
     greens = torch.tensor(frames[..., 1].astype(np.float32), device=dev)
     model, params = load_scoring_params(device=dev)
+    screener = args.capacities == "screener"   # pipeline/screening.py's defaults
     if args.backend == "stardist":
-        cfg = SegConfig(max_candidates=256, raster_patch=96, raster_cap=128)
-        stage_a = dict(label_capacity=128, cell_capacity=128, rcap=32)
+        cfg = (SegConfig(raster_cap=512) if screener
+               else SegConfig(max_candidates=256, raster_patch=96, raster_cap=128))
+        stage_a = (dict(label_capacity=1024, cell_capacity=512, rcap=32) if screener
+                   else dict(label_capacity=128, cell_capacity=128, rcap=32))
         backend = StarDistBackend(load_unet_variables(), cfg, device=dev)
     else:   # utils/bench.py:250-253
-        stage_a = dict(label_capacity=4096, cell_capacity=128, rcap=32)
+        stage_a = (dict(label_capacity=1024, cell_capacity=512, rcap=32) if screener
+                   else dict(label_capacity=4096, cell_capacity=128, rcap=32))
         backend = ThresholdBackend()
+
+    fallback_runs = []
+
+    class Twin:
+        """The exact twin, counting the batches that fall back to it."""
+
+        def __init__(self, fn):
+            self.fn = fn
+            for flag in ("returns_mask", "returns_overflow", "runs_props"):
+                if hasattr(fn, flag):
+                    setattr(self, flag, getattr(fn, flag))
+
+        def __call__(self, x):
+            fallback_runs.append(1)
+            return self.fn(x)
+
+    twin = Twin(backend.exact_twin())
 
     def full():
         return score_frames_fused(model, params, segs, greens, backend, chunk=32,
-                                  caps=(64, 96), fallback_segment_fn=backend.exact_twin(),
+                                  caps=(64, 96), fallback_segment_fn=twin,
                                   **stage_a, **({} if args.backend == "stardist"
                                                 else {"fg_fraction": 0.12}))
 
@@ -192,14 +223,20 @@ def main() -> int:
             label_kw = dict(stage_a, fg_fraction=0.12)
             label_kw.pop("rcap")
             _, t_la = timed(lambda: extract_candidates(labels, greens, **label_kw))
+    fallback_runs.clear()
     (scores, stats), t_full = timed(full)
+    n_fallback = len(fallback_runs) // 3
     split = bucket_loop_split(torch, full)
     n = len(stats["area"])
-    print(f"{args.backend}: batch of {args.frames} x {args.size}^2, {n} cells (best of 3, ms):")
+    print(f"{args.backend}, {args.capacities} capacities: batch of {args.frames} x "
+          f"{args.size}^2, {n} cells (best of 3, ms):")
     stages += [("CLAHE/resize/score loop + host", t_full - t_seg - t_a), ("total", t_full)]
     for name, t in stages:
         print(f"  {name:32s} {t:9.2f}  ({100 * t / t_full:5.1f}%)")
     print(f"  cells/s {n / t_full * 1e3:.1f}")
+    print(f"  runs through the exact twin in a full run (an overflow flag fired): {n_fallback}"
+          + ("; the loop's remainder and the total include that second run" if n_fallback
+             else ""))
     print(f"  bucket loop by part, each call synchronized "
           f"({split.pop('launches of CLAHE')} CLAHE launches):")
     for name, t in split.items():
@@ -226,7 +263,55 @@ def main() -> int:
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
+    if args.pipeline:
+        pipeline_times(torch, args.pipeline, n, lambda: dict(
+            model=model, params=params, segs=segs, greens=greens, segment_fn=backend, chunk=32,
+            caps=(64, 96), fallback_segment_fn=twin, **stage_a,
+            **({} if args.backend == "stardist" else {"fg_fraction": 0.12})))
     return 0
+
+
+def pipeline_times(torch, n_batches: int, n_cells: int, kwargs) -> None:
+    """N batches one at a time and with one in flight, in turns (best of 3
+    each), with the host's time inside the start and the wait calls."""
+    from cell_image_analysis_tpu_torch.pipeline.scoring import (
+        score_frames_fused_start,
+        score_frames_fused_wait,
+    )
+
+    def run(in_flight: bool) -> tuple:
+        host = {"start": 0.0, "wait": 0.0}
+
+        def call(name, fn, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host[name] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = []
+        for _ in range(n_batches):
+            pending.append(call("start", score_frames_fused_start, **kwargs()))
+            while len(pending) > (1 if in_flight else 0):
+                call("wait", score_frames_fused_wait, pending.pop(0))
+        while pending:
+            call("wait", score_frames_fused_wait, pending.pop(0))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, host
+
+    best = {}
+    for in_flight in (False, True, True, False, False, True):
+        t, host = run(in_flight)
+        if in_flight not in best or t < best[in_flight][0]:
+            best[in_flight] = (t, host)
+    for in_flight, name in ((False, "one at a time"), (True, "one in flight")):
+        t, host = best[in_flight]
+        print(f"{n_batches} batches, {name}: {t:.2f} ms ({n_batches * n_cells / t * 1e3:.1f} "
+              f"cells/s); host inside start {host['start']:.2f} ms, inside wait "
+              f"{host['wait']:.2f} ms")
+    a, b = best[False][0], best[True][0]
+    print(f"one in flight takes {100 * (a - b) / a:.1f}% less wall time than one at a time")
 
 
 if __name__ == "__main__":

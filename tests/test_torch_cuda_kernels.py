@@ -262,3 +262,52 @@ def test_cc_kernel_rejects_what_it_does_not_take(dev):
         label_components_cuda(mask.transpose(1, 2), 1)         # not contiguous
     with pytest.raises(ValueError):
         label_components_cuda(mask, 3)
+
+
+@pytest.fixture
+def second_dev():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: the kernels run off the current device")
+    assert torch.cuda.current_device() == 0
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("kernel", ["winograd", "segment_sum", "clahe", "cc"])
+def test_kernel_on_a_device_that_is_not_current(second_dev, kernel):
+    """Each kernel on `cuda:1` with `cuda:0` current, after a first launch
+    on `cuda:0` (so that whatever a launcher remembers was remembered for
+    another device), against its plain version; and a rejection of inputs
+    on two devices."""
+    from cell_image_analysis_tpu_torch.ops.cc import label_components, label_components_plain
+    from cell_image_analysis_tpu_torch.ops.clahe import clahe_cells, clahe_cells_plain
+    from cell_image_analysis_tpu_torch.ops.cuda.segsum import segment_sums_cuda
+    from cell_image_analysis_tpu_torch.ops.segsum import segment_sums, segment_sums_plain
+    from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3, winograd_conv3x3_plain
+
+    rng = np.random.default_rng(1)
+    for d in (torch.device("cuda", 0), second_dev):
+        if kernel == "winograd":
+            x = torch.tensor(rng.normal(size=(2, 20, 36, 64)).astype(np.float32), device=d)
+            W = torch.tensor(rng.normal(size=(3, 3, 64, 128)).astype(np.float32) / 24, device=d)
+            y, ref = winograd_conv3x3(x, W), winograd_conv3x3_plain(x, W)
+            assert y.device == d
+            assert float((y - ref).abs().max()) / float(ref.abs().max()) < 1e-5
+        elif kernel == "segment_sum":
+            seg = torch.tensor(rng.integers(-2, 40, size=5000).astype(np.int32), device=d)
+            data = torch.tensor(rng.integers(-10**9, 10**9, size=(5000, 6)), device=d)
+            got = segment_sums(seg, data, 37)
+            assert got.device == d and torch.equal(got, segment_sums_plain(seg, data, 37))
+            if d == second_dev:
+                with pytest.raises(ValueError, match="one CUDA device"):
+                    segment_sums_cuda(seg.to("cuda:0"), data, 37)
+        elif kernel == "clahe":
+            crops, hs, ws = padded_crops(rng, [(40, 50), (64, 17), (20, 20)], 64)
+            t = [torch.tensor(a, device=d) for a in (crops, hs, ws)]
+            got = clahe_cells(*t, ns_cap=12)
+            assert got.device == d and torch.equal(got, clahe_cells_plain(*t, ns_cap=12))
+        else:
+            mask = torch.tensor(rng.random((2, 70, 130)) < 0.55, device=d)
+            got, ref = label_components(mask), label_components_plain(mask)
+            assert got[0].device == d
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.cuda.current_device() == 0

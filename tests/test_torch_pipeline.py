@@ -113,9 +113,8 @@ def test_score_frames_fused_matches_jax():
     _assert_rates_close(ref, got, report)
 
 
-def test_overflow_raises_instead_of_falling_back():
-    """The name is kept from when the port raised on overflow.  Without a
-    fallback the port now warns, as JAX does, and returns what the
+def test_overflow_without_fallback_warns():
+    """Without a fallback the port warns, as JAX does, and returns what the
     overflowing route gave; the 8192-pair budget overflows on these
     frames."""
     segs, greens = _frames()

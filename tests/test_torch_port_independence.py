@@ -1,11 +1,14 @@
 """PyTorch port: it stands on its own.
 
 - No file of `cell_image_analysis_tpu_torch/`, nor `chip_smoke.py`,
+  `improved_detection_torch.py`, `improved_detection_v2_torch.py`,
   `scripts/profile_torch_port.py`, `scripts/clahe_bands.py`,
   `scripts/cc_split.py` or `scripts/cc_ablate.py`, imports
   `jax` or anything of the JAX package (an AST scan, one case a file).
 - The port's `SegConfig` has the JAX defaults, field for field, and leaves
-  out only the JAX package's TPU knobs.
+  out only the JAX package's TPU knobs; its other config classes have the
+  JAX package's fields and defaults, `PipelineConfig` all but `sharding`;
+  the artifact names and the output-file lists are equal.
 - The port's synthetic frames are byte-equal to the JAX package's.
 - The entry points that own tensors put them on the card by default, and
   raise where there is none unless the caller passes `device="cpu"`.
@@ -28,7 +31,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT_FILES = sorted(
     [os.path.relpath(p, _REPO) for p in
      glob.glob(os.path.join(_REPO, "cell_image_analysis_tpu_torch", "**", "*.py"), recursive=True)]
-    + ["chip_smoke.py", os.path.join("scripts", "profile_torch_port.py"),
+    + ["chip_smoke.py", "improved_detection_torch.py", "improved_detection_v2_torch.py",
+       os.path.join("scripts", "profile_torch_port.py"),
        os.path.join("scripts", "clahe_bands.py"), os.path.join("scripts", "cc_split.py"),
        os.path.join("scripts", "cc_ablate.py")])
 _FORBIDDEN = ("jax", "jaxlib", "flax", "cell_image_analysis_tpu")
@@ -56,8 +60,13 @@ def test_port_file_imports_no_jax(path):
 
 
 def test_the_scan_covers_the_port():
-    assert len(_PORT_FILES) >= 30
+    assert len(_PORT_FILES) >= 45
     assert "cell_image_analysis_tpu_torch/config.py" in _PORT_FILES
+    for name in ("cli.py", "io/tiff.py", "io/ingest.py", "pipeline/screening.py",
+                 "pipeline/reports.py", "utils/profiler.py", "models/pca.py"):
+        assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
+    assert "improved_detection_torch.py" in _PORT_FILES
+    assert "improved_detection_v2_torch.py" in _PORT_FILES
     assert "cell_image_analysis_tpu_torch/utils/synthetic.py" in _PORT_FILES
     tree = ast.parse("import jax.numpy as jnp\nfrom cell_image_analysis_tpu.config import X\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "cell_image_analysis_tpu.config"]
@@ -86,6 +95,50 @@ def test_seg_config_leaves_out_only_the_tpu_knobs():
     assert set(_port_fields()) <= jax_fields
     with pytest.raises(dataclasses.FrozenInstanceError):
         SegConfig().n_rays = 3
+
+
+_CONFIG_CLASSES = ("QCConfig", "CLAHEConfig", "ExtractConfig", "CAEConfig", "AugmentConfig",
+                   "TrainConfig", "DetectorConfig", "FFTConfig", "EnsembleConfig", "TriageConfig")
+
+
+@pytest.mark.parametrize("name", _CONFIG_CLASSES)
+def test_config_class_equals_jax_field_for_field(name):
+    from cell_image_analysis_tpu import config as jax_config
+    from cell_image_analysis_tpu_torch import config
+
+    port, ref = getattr(config, name), getattr(jax_config, name)
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+    assert [f.type for f in dataclasses.fields(port)] == [f.type for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        setattr(port(), dataclasses.fields(port)[0].name, 0)
+
+
+def test_pipeline_config_equals_jax_but_for_sharding():
+    from cell_image_analysis_tpu.config import PipelineConfig as JaxPipelineConfig
+    from cell_image_analysis_tpu_torch import config
+
+    port = [f.name for f in dataclasses.fields(config.PipelineConfig)]
+    ref = [f.name for f in dataclasses.fields(JaxPipelineConfig)]
+    assert port == [n for n in ref if n != "sharding"]
+    got, want = dataclasses.asdict(config.PipelineConfig()), dataclasses.asdict(JaxPipelineConfig())
+    del want["sharding"]
+    want["seg"] = {k: v for k, v in want["seg"].items() if k not in _TPU_KNOBS}
+    assert got == want
+    assert type(config.PipelineConfig().seg) is config.SegConfig
+    assert config.CAEConfig().latent_dim == 2048
+    cfg = config.PipelineConfig().replace(seed=7)
+    assert cfg.seed == 7 and cfg.qc == config.QCConfig()
+
+
+def test_artifact_names_and_output_files_equal_jax():
+    from cell_image_analysis_tpu import config as jax_config
+    from cell_image_analysis_tpu_torch import config
+
+    names = [n for n in dir(jax_config) if n.startswith(("ARTIFACT_", "OUTPUT_FILES_"))]
+    assert len(names) == 9
+    for n in names:
+        assert getattr(config, n) == getattr(jax_config, n), n
 
 
 @pytest.mark.parametrize("seed,size,n_cells,mutant", [(7, 96, 3, 0.0), (11, 128, 6, 0.5),

@@ -440,3 +440,21 @@ def cc_tile_emulation(mask: np.ndarray, conn: int, th: int = 32, tw: int = 64, s
         out = np.array([lab[li] if li >= 0 else 0 for li in l]).reshape(th, tw)
         labels[b, ty * th:ty * th + rows_in, tx * tw:tx * tw + cols_in] = out[:rows_in, :cols_in]
     return labels, count
+
+
+def write_jax_store(model_dir: str, fft: bool = True, ensemble: bool = True, X=None) -> dict:
+    """A model directory written by the JAX package's own
+    `save_training_artifacts` from `utils/bench._fit_params(seed=0, X=X)`'s
+    `host` dict; returns that dict.  `fft` / `ensemble` False leave out the
+    optional files, as a store from before those capabilities."""
+    from cell_image_analysis_tpu.io.artifacts import save_training_artifacts
+    from cell_image_analysis_tpu.utils.bench import _fit_params
+
+    _, _, host = _fit_params(seed=0, X=X)
+    save_training_artifacts(
+        model_dir, host["model"], host["variables"], host["variables"], host["scaler"],
+        host["pca"], {"Conservative": host["cons"], "Moderate": host["mod"]},
+        host["ens"] if ensemble else None,
+        fft_scaler=host["fft_scaler"] if fft else None,
+        fft_detector=host["fft_det"] if fft else None)
+    return host
