@@ -1,14 +1,15 @@
 """Command-line entry point of the port.
 
+  python -m cell_image_analysis_tpu_torch.cli train INPUT_FOLDER --output OUT
   python -m cell_image_analysis_tpu_torch.cli screen --models DIR \
          --sample strain1=/path/a --sample strain2=/path/b --output OUT
 
-Counterpart of `cell_image_analysis_tpu/cli.py`'s `screen` command, with
-the screening constants as flags whose defaults are the reference values
-(the training flags wait for `train`).  It runs on
-the card; `--device cpu` runs it on the CPU.  Without a GPU and without
-`--device cpu` it exits with an error.  `train` and `bench` are not ported
-yet.
+Counterpart of `cell_image_analysis_tpu/cli.py`'s `train` and `screen`
+commands, with the constants as flags whose defaults are the reference
+values.  They run on the card; `--device cpu` runs them on the CPU.
+Without a GPU and without `--device cpu` they exit with an error (code 2).
+`train` exits 1 when fewer than `--min-cells` cells pass QC.  `bench` is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +32,12 @@ def _apply_overrides(config, args):
     det = dataclasses.replace(
         config.detector, nu_conservative=args.nu_conservative, nu_moderate=args.nu_moderate
     )
-    return dataclasses.replace(config, qc=qc, seg=seg, detector=det)
+    config = dataclasses.replace(config, qc=qc, seg=seg, detector=det)
+    if hasattr(args, "epochs"):
+        train = dataclasses.replace(config.train, epochs=args.epochs,
+                                    batch_size=args.batch_size, min_cells=args.min_cells)
+        config = dataclasses.replace(config, train=train)
+    return config
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -51,6 +57,19 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--min-std-intensity", type=float, default=0.1)
     p.add_argument("--nu-conservative", type=float, default=0.05)
     p.add_argument("--nu-moderate", type=float, default=0.10)
+
+
+def add_train_arguments(p: argparse.ArgumentParser):
+    p.add_argument("input_folder")
+    p.add_argument("--output", default=None)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--min-cells", type=int, default=500,
+                   help="abort training below this many QC cells (reference: 500)")
+    p.add_argument("--no-figures", action="store_true",
+                   help="write the store, the CSVs and the reports but not the three PNG "
+                        "figures (they need matplotlib)")
+    _add_common(p)
 
 
 def add_screen_arguments(p: argparse.ArgumentParser):
@@ -100,18 +119,36 @@ def parse_samples(parser: argparse.ArgumentParser, args) -> dict:
     return samples
 
 
+def _device(parser: argparse.ArgumentParser, args):
+    from cell_image_analysis_tpu_torch.io.artifacts import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as e:
+        parser.exit(2, f"{parser.prog}: error: {e} (--device cpu)\n")
+
+
+def run_train(parser: argparse.ArgumentParser, args, unet_variables) -> int:
+    """Train on `args.input_folder` into `args.output`; 0, or 1 below
+    `--min-cells` cells."""
+    from cell_image_analysis_tpu_torch.config import PipelineConfig
+    from cell_image_analysis_tpu_torch.pipeline.training import ImprovedAnomalyDetectionTraining
+
+    device = _device(parser, args)
+    config = _apply_overrides(PipelineConfig(), args)
+    out = args.output or f"./output/{datetime.now().strftime('%Y%m%d_%H%M')}"
+    trainer = ImprovedAnomalyDetectionTraining(out, config, unet_variables, device=device)
+    return 0 if trainer.run(args.input_folder, figures=not args.no_figures) else 1
+
+
 def run_screen(parser: argparse.ArgumentParser, args, unet_variables, default_suffix: str):
     """Screen `args.sample` with the models of `args.models`; returns
     (results, output dir)."""
     from cell_image_analysis_tpu_torch.config import PipelineConfig
-    from cell_image_analysis_tpu_torch.io.artifacts import resolve_device
     from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
 
     samples = parse_samples(parser, args)
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        parser.exit(2, f"{parser.prog}: error: {e} (--device cpu)\n")
+    device = _device(parser, args)
     config = _apply_overrides(PipelineConfig(), args)
     stamp = datetime.now().strftime("%Y%m%d_%H%M")
     out = args.output or f"./results/{stamp}_{default_suffix}"
@@ -123,8 +160,11 @@ def run_screen(parser: argparse.ArgumentParser, args, unet_variables, default_su
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="cell_image_analysis_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    add_train_arguments(sub.add_parser("train", help="CAE training pipeline"))
     add_screen_arguments(sub.add_parser("screen", help="mutant screening pipeline"))
     args = parser.parse_args(argv)
+    if args.command == "train":
+        return run_train(parser, args, load_unet(args))
 
     results, out = run_screen(parser, args, load_unet(args), "improved_screening")
     print("\n=== SCREENING COMPLETED ===")

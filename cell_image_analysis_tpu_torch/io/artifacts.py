@@ -1,21 +1,29 @@
-"""Weights and scoring state carried over from the JAX package, without JAX.
+"""The artifact store and the weights carried between the packages, without JAX.
 
-- `load_screening_artifacts` reads the store that the JAX package's
-  training writes (`best_autoencoder.keras`, `scaler.pkl`, `pca.pkl`,
-  `detector_conservative.pkl`, `detector_moderate.pkl`, and the optional
-  `ensemble.json`, `fft_scaler.pkl`, `detector_fft.pkl`);
-  `build_scoring_params` turns it into `(CAE module, ScoringParams)`.  The
-  `.pkl` files pickle classes of the JAX package: `_StoreUnpickler` maps
-  those class paths onto the port's copies, lets numpy's array
-  reconstructors through and refuses every other global.  Genuine Keras
-  models and sklearn pickles (the JAX package's `io/keras_interop`) are not
-  read yet and raise `NotImplementedError`.
+- `save_training_artifacts` writes the store that training leaves
+  (`best_autoencoder.keras`, `final_autoencoder.keras`, `encoder.keras`,
+  `scaler.pkl`, `pca.pkl`, `detector_conservative.pkl`,
+  `detector_moderate.pkl`, `ensemble.json`, `fft_scaler.pkl`,
+  `detector_fft.pkl`) under the JAX package's file names and formats: a
+  model file is a pickle of `{'magic', 'arch', 'variables'}` with the CAE's
+  variables as numpy in flax's layout (`save_cae`, through
+  `cae_state_to_jax`).  The `.pkl` files pickle the port's own estimator
+  classes, whose module paths differ from the JAX package's, so the JAX
+  screener cannot read a store that the port trained.
+- `load_screening_artifacts` reads a store written by either package;
+  `build_scoring_params` turns it into `(CAE module, ScoringParams)`.
+  `_StoreUnpickler` maps the JAX package's class paths onto the port's
+  classes, takes the port's own, lets numpy's array reconstructors through
+  and refuses every other global.  Genuine Keras models and sklearn
+  pickles (the JAX package's `io/keras_interop`) are not read yet and
+  raise `NotImplementedError`.
 - `load_unet_variables` reads the committed StarDist U-Net weights
   (`assets/unet_synthetic.pkl`: a dict of numpy arrays in flax HWIO layout)
   and checks their magic, as `utils/bench.load_synthetic_unet_variables`
   does on the JAX side.
 - `unet_state_from_jax` / `cae_state_from_jax` map flax variables onto the
-  port's `nn.Module` state dicts (HWIO -> OIHW).
+  port's `nn.Module` state dicts (HWIO -> OIHW); `cae_state_to_jax` is
+  the inverse of the latter.
 - `load_scoring_params` reads `assets/scoring_synthetic.npz`
   (scripts/make_torch_port_assets.py) into a `ScoringParams` of tensors,
   on the card unless the caller passes `device="cpu"`.
@@ -98,6 +106,32 @@ def cae_state_from_jax(variables: dict) -> dict:
     return state
 
 
+def cae_state_to_jax(state: dict) -> dict:
+    """The inverse of `cae_state_from_jax`: a `models.cae.CAE` state dict ->
+    flax variables {'params': {'Conv_i': {'kernel' HWIO, 'bias'},
+    'BatchNorm_i': {'scale', 'bias'}}, 'batch_stats': {'BatchNorm_i':
+    {'mean', 'var'}}} as float32 numpy."""
+    params: dict = {}
+    stats: dict = {}
+
+    def host(t):
+        return np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t,
+                          np.float32)
+
+    for key, t in state.items():
+        kind, idx, leaf = key.split(".")
+        a = host(t)
+        if kind == "convs":
+            layer = params.setdefault(f"Conv_{idx}", {})
+            layer["kernel" if leaf == "weight" else "bias"] = (
+                np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if leaf == "weight" else a)
+        elif leaf in ("running_mean", "running_var"):
+            stats.setdefault(f"BatchNorm_{idx}", {})[leaf[len("running_"):]] = a
+        else:
+            params.setdefault(f"BatchNorm_{idx}", {})["scale" if leaf == "weight" else "bias"] = a
+    return {"params": params, "batch_stats": stats}
+
+
 def _nest_cae(arrays: dict) -> dict:
     """`cae/<collection>/<layer>/<leaf>` entries -> nested flax-style dict."""
     out: dict = {}
@@ -150,7 +184,7 @@ def load_scoring_params(path: str | None = None, device=None):
 
 # ------------------------------------------------- the training store --
 
-_ESTIMATORS = {
+_ESTIMATORS = {  # the JAX package's classes -> the port's (the port's own map to themselves)
     ("cell_image_analysis_tpu.models.scaler", "RobustScaler"):
         ("cell_image_analysis_tpu_torch.models.scaler", "RobustScaler"),
     ("cell_image_analysis_tpu.models.pca", "PCA"):
@@ -160,6 +194,7 @@ _ESTIMATORS = {
     ("cell_image_analysis_tpu.models.ensemble", "EnsembleDetector"):
         ("cell_image_analysis_tpu_torch.models.ensemble", "EnsembleDetector"),
 }
+_ESTIMATORS.update({target: target for target in list(_ESTIMATORS.values())})
 # what a numpy array, scalar or dtype pickles through, under either
 # spelling of numpy's core package
 _NUMPY_GLOBALS = {(mod, name)
@@ -193,6 +228,50 @@ class _StoreUnpickler(pickle.Unpickler):
             "numpy arrays and the fitted scaler, PCA, SVM and ensemble classes")
 
 
+def _save_pickle(path: str, obj) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def save_cae(path: str, model, state: dict) -> None:
+    """A model file of the store: the JAX package's magic and arch, and the
+    state dict `state` of `model` as flax-layout numpy variables."""
+    _save_pickle(path, {
+        "magic": _CAE_MAGIC,
+        "arch": {
+            "encoder_filters": tuple(model.encoder_filters),
+            "decoder_filters": tuple(model.decoder_filters),
+            "bn_momentum": model.bn_momentum,
+            "bn_epsilon": model.bn_epsilon,
+        },
+        "variables": cae_state_to_jax(state),
+    })
+
+
+def save_training_artifacts(output_dir: str, model, best_state: dict, final_state: dict,
+                            scaler, pca, detectors: dict, ensemble=None, fft_scaler=None,
+                            fft_detector=None) -> None:
+    """Write the store into `output_dir`, with the JAX package's file names
+    (`encoder.keras` holds the best weights: the encoder is the first half
+    of the module)."""
+    from cell_image_analysis_tpu_torch import config as C
+
+    os.makedirs(output_dir, exist_ok=True)
+    save_cae(os.path.join(output_dir, C.ARTIFACT_BEST_AUTOENCODER), model, best_state)
+    save_cae(os.path.join(output_dir, C.ARTIFACT_FINAL_AUTOENCODER), model, final_state)
+    save_cae(os.path.join(output_dir, C.ARTIFACT_ENCODER), model, best_state)
+    _save_pickle(os.path.join(output_dir, C.ARTIFACT_SCALER), scaler)
+    _save_pickle(os.path.join(output_dir, C.ARTIFACT_PCA), pca)
+    for name, det in detectors.items():
+        _save_pickle(os.path.join(output_dir, f"detector_{name.lower()}.pkl"), det)
+    if ensemble is not None:
+        with open(os.path.join(output_dir, "ensemble.json"), "w") as f:
+            json.dump({"mse_threshold": ensemble.mse_threshold, "min_votes": ensemble.min_votes}, f)
+    if fft_scaler is not None and fft_detector is not None:
+        _save_pickle(os.path.join(output_dir, "fft_scaler.pkl"), fft_scaler)
+        _save_pickle(os.path.join(output_dir, "detector_fft.pkl"), fft_detector)
+
+
 def _load_store_pickle(path: str):
     with open(path, "rb") as f:
         return _StoreUnpickler(f).load()
@@ -218,7 +297,7 @@ def load_cae(path: str):
     arch = payload["arch"]
     model = CAE(encoder_filters=tuple(arch["encoder_filters"]),
                 decoder_filters=tuple(arch["decoder_filters"]),
-                bn_epsilon=arch["bn_epsilon"])
+                bn_epsilon=arch["bn_epsilon"], bn_momentum=arch.get("bn_momentum", 0.99))
     variables = payload["variables"]
     model.load_state_dict(cae_state_from_jax(variables))
     return model.eval(), variables

@@ -5,7 +5,8 @@ host-bound, so workers decode frames ahead of the device loop and a bounded
 queue holds them.  One bad file does not end a run: it is skipped and
 listed in `FrameStream.errors`.  The workers are plain numpy: no tensor is
 made off the main thread.  `decode_seconds` sums the readers' time over
-all workers.
+all workers.  `frames_to_device` stacks same-shape channels into one
+device tensor.
 """
 
 from __future__ import annotations
@@ -20,6 +21,21 @@ from typing import Callable, Iterator
 import numpy as np
 
 from cell_image_analysis_tpu_torch.io.tiff import imread
+
+
+def frames_to_device(channels: list, device):
+    """Same-shape host channels -> one (B, H, W) float32 tensor on `device`.
+    For the card they are cast into pinned memory and copied without
+    waiting, so the copy does not hold up a batch in flight."""
+    import torch
+
+    pinned = torch.device(device).type == "cuda"
+    host = torch.empty((len(channels), *channels[0].shape), dtype=torch.float32,
+                       pin_memory=pinned)
+    buf = host.numpy()
+    for i, c in enumerate(channels):
+        buf[i] = c
+    return host.to(device, non_blocking=True) if pinned else host
 
 
 def list_tiffs(folder: str) -> list[str]:

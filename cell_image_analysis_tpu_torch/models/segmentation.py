@@ -16,7 +16,9 @@ Counterpart of `cell_image_analysis_tpu/models/segmentation.py`:
   cap, the NMS pair budget and the candidate cap.  Its `exact_twin()` is
   the backend JAX's callers re-run on overflow: scatter rasterizer, the
   K^2 NMS pair set and the pixel regionprops;
-- `segment_frame`: the dispatch on `SegConfig.backend`.
+- `segment_frame`: the dispatch on `SegConfig.backend`;
+- `select_backend`: the screener's and the trainer's choice of a
+  segment_fn and its exact twin.
 
 All of them take batches (B, H, W).
 """
@@ -182,3 +184,18 @@ def segment_frame(seg_channels: torch.Tensor, cfg: SegConfig = SegConfig(),
     with torch.inference_mode():
         labels, _ = predict_instances(seg_channels, model, cfg)
     return labels
+
+
+def select_backend(seg_cfg: SegConfig, cell_capacity: int, unet_variables=None, device=None):
+    """(segment_fn, exact twin, U-Net module or None) of the pipelines.
+    With `unet_variables` and the StarDist backend: the raster-capped
+    `StarDistBackend` (`raster_cap` = `cell_capacity` unless set), whose
+    twin takes every overflow re-run, on `device`.  Otherwise the threshold
+    backend: the mask route with the label route as its exact twin."""
+    if seg_cfg.backend == "threshold" or unet_variables is None:
+        primary = ThresholdBackend(seg_cfg)
+        return primary, primary.exact_twin(), None
+    if not seg_cfg.raster_cap:
+        seg_cfg = dataclasses.replace(seg_cfg, raster_cap=cell_capacity)
+    primary = StarDistBackend(unet_variables, seg_cfg, device=device)
+    return primary, primary.exact_twin(), primary.model

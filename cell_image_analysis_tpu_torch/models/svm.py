@@ -1,9 +1,17 @@
-"""One-class RBF SVM: decision function and fitted state (inference only).
+"""One-class RBF SVM: the kernel matrix on the device, SMO on the host.
 
-Counterpart of `cell_image_analysis_tpu/models/svm.py`: the kernel block
-`exp(-gamma * max(|x|^2 + |y|^2 - 2 x.y, 0))` against the support vectors,
-then a matvec with the dual coefficients, minus rho; positive = inlier.
-Matmuls run in float32 (TF32 off).
+Counterpart of `cell_image_analysis_tpu/models/svm.py`, in place of
+`sklearn.svm.OneClassSVM(kernel='rbf', gamma='scale', nu=...)`:
+
+- `fit`: gamma='scale' is 1 / (n_features * X.var()) in float64 on the
+  host, as JAX computes it; the (N, N) kernel matrix
+  `exp(-gamma * max(|x|^2 + |y|^2 - 2 x.y, 0))` is one float32 matmul on
+  the input's device (TF32 off); it goes to the host in float64 for the SMO
+  solver (`models.smo.smo_one_class`, C++); the support vectors are the
+  rows with alpha > 1e-10.
+- `decision_function`: the kernel block against the support vectors, a
+  matvec with the dual coefficients, minus rho; positive = inlier.
+  `predict` maps it to +1 / -1.
 """
 
 from __future__ import annotations
@@ -13,6 +21,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from cell_image_analysis_tpu_torch.models.smo import smo_one_class
+
+_SV_TAU = 1e-10
 
 
 class SVMParams(NamedTuple):
@@ -37,7 +49,8 @@ def decision_function(params: SVMParams, X: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class OneClassSVM:
-    """The fitted state of the JAX package's `OneClassSVM`."""
+    """sklearn's `OneClassSVM` with an RBF kernel: `fit`, `decision_function`
+    and `predict` on tensors or numpy arrays, on their device."""
 
     nu: float = 0.5
     gamma: str | float = "scale"
@@ -57,3 +70,35 @@ class OneClassSVM:
             rho=torch.tensor(np.float32(-self.intercept_)),
             gamma=torch.tensor(np.float32(self.gamma_)),
         )
+
+    def _resolve_gamma(self, X: np.ndarray) -> float:
+        if self.gamma == "scale":
+            v = float(np.asarray(X, dtype=np.float64).var())
+            return 1.0 / (X.shape[1] * v) if v > 0 else 1.0
+        if self.gamma == "auto":
+            return 1.0 / X.shape[1]
+        return float(self.gamma)
+
+    def fit(self, X) -> "OneClassSVM":
+        Xd = X if isinstance(X, torch.Tensor) else torch.as_tensor(np.asarray(X))
+        Xd = Xd.float()
+        Xh = Xd.cpu().numpy()
+        self.gamma_ = self._resolve_gamma(Xh)
+        gamma = torch.tensor(np.float32(self.gamma_), device=Xd.device)
+        K = rbf_kernel(Xd, Xd, gamma).cpu().numpy().astype(np.float64)
+        alpha, rho, n_iter = smo_one_class(K, self.nu, tol=self.tol)
+        sv = alpha > _SV_TAU
+        self.support_vectors_ = Xh[sv]
+        self.dual_coef_ = alpha[sv].astype(np.float32)
+        self.intercept_ = -float(rho)
+        self.n_iter_ = n_iter
+        return self
+
+    def decision_function(self, X) -> np.ndarray:
+        Xd = X if isinstance(X, torch.Tensor) else torch.as_tensor(np.asarray(X))
+        params = SVMParams(*(t.to(Xd.device) for t in self.params))
+        return decision_function(params, Xd.float()).cpu().numpy()
+
+    def predict(self, X) -> np.ndarray:
+        d = self.decision_function(X)
+        return np.where(d > 0, 1, -1).astype(np.int32)

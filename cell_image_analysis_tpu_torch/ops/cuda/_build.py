@@ -6,6 +6,8 @@ One `nvcc` process a source, all started together, compiles each for
 (listed in .gitignore).  `<hash>` covers the sources' contents, so an edit
 rebuilds and an unchanged tree reuses the library.  The sources have a
 plain C interface (no PyTorch headers), which keeps the build to seconds.
+`cached_build` and `load` are the hash-keyed build and the ctypes load for
+any such library; the host SMO solver (`models/smo.py`) uses them with g++.
 
 Every C entry point that launches takes its pointers and the CUDA stream
 as `void*`, launches on that stream, and returns `cudaGetLastError()`;
@@ -23,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Callable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -60,45 +63,71 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> str:
+def cached_build(sources: list[str], compiler: Callable[[], str], flags: list[str],
+                 build_dir: str, stem: str, extra: tuple[str, ...] = (),
+                 verbose: bool = False) -> tuple[str, float | None]:
+    """Build `sources` into `build_dir/<stem>_<hash>.so` unless it exists.
+
+    One `compiler() *flags *extra -c` process a source, all started
+    together, then one `compiler() *flags -shared` link, written to a
+    temporary name and moved into place.  `<hash>` covers the sources'
+    names and contents and `flags`, not `extra`.  `compiler` is called only
+    when a build is needed.  Returns (path, seconds of the build, or None
+    when the library was reused); RuntimeError when a step fails.
+    """
     h = hashlib.sha256()
-    for p in _sources():
+    for p in sources:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libcia_torch_kernels_{h.hexdigest()[:16]}.so")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile the sources unless the library for their hash exists."""
-    global build_seconds
-    out = library_path()
+    h.update(" ".join(flags).encode())
+    out = os.path.join(build_dir, f"{stem}_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+        return out, None
+    cc = compiler()
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
-    ptxas = ["-Xptxas", "-v"] if verbose else []
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", obj, src],
+    procs = [subprocess.Popen([cc, *flags, *extra, "-c", "-o", obj, src],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(_sources(), objs)]
-    steps = [(src, *proc.communicate(), proc.returncode) for src, proc in zip(_sources(), procs)]
+             for src, obj in zip(sources, objs)]
+    steps = [(src, *proc.communicate(), proc.returncode) for src, proc in zip(sources, procs)]
     if all(rc == 0 for *_, rc in steps):
-        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+        link = subprocess.run([cc, *flags, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
         steps.append(("link", link.stdout, link.stderr, link.returncode))
-    build_seconds = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     for obj in objs:
         if os.path.exists(obj):
             os.remove(obj)
     for src, _, err, rc in steps:
         if rc != 0:
-            raise RuntimeError(f"nvcc failed on {os.path.basename(src)} ({rc}):\n{err}")
+            raise RuntimeError(
+                f"{os.path.basename(cc)} failed on {os.path.basename(src)} ({rc}):\n{err}")
         if verbose:
             print(err, end="")
     os.replace(tmp, out)
+    return out, seconds
+
+
+def load(path: str, signatures: dict, restype=ctypes.c_int) -> ctypes.CDLL:
+    """`ctypes.CDLL(path)` with each entry point's argtypes and `restype`."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the sources unless the library for their hash exists."""
+    global build_seconds
+    out, seconds = cached_build(_sources(), _nvcc, NVCC_FLAGS, BUILD_DIR, "libcia_torch_kernels",
+                                extra=("-Xptxas", "-v") if verbose else (), verbose=verbose)
+    if seconds is not None:
+        build_seconds = seconds
     return out
 
 
@@ -106,12 +135,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = load(build(), _SIGNATURES)
     return _LIB
 
 

@@ -16,19 +16,32 @@ The regionprops come from one of three routes:
 The static capacities and their truncation are kept exactly: they decide
 which cells survive.  Batched over frames.
 
-`extract_cells_chunked` is the host-facing form for one frame: stage A
-through the pixel regionprops, then CLAHE and resize by size bucket; it
-returns the preprocessed cells as numpy.
+`stage_a` picks the route by the segment_fn's flags; `preprocess_buckets`
+is stage B, CLAHE once a size bucket and the resize in chunks, which the
+screening path (`pipeline.scoring`) and the two host-facing forms share:
+
+- `extract_cells_chunked`: one frame's label map through the pixel
+  regionprops, then stage B; the preprocessed cells come back as numpy;
+- `extract_cells_frames`: a batch of frames through a segment_fn and stage
+  A, re-run through `fallback_segment_fn` (the exact twin) when a capacity
+  flag fires, then stage B over the pooled cells of all frames; the cells
+  come back as numpy, with the label maps as uint16 on request (the
+  training's solidity).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import warnings
+
+import numpy as np
 import torch
 
 from cell_image_analysis_tpu_torch.ops import gather_rows, nonzero_static
+from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, size_buckets
 from cell_image_analysis_tpu_torch.ops.regionprops import qc_mask, regionprops
+from cell_image_analysis_tpu_torch.ops.resize import resize_cells
 from cell_image_analysis_tpu_torch.ops.runs import regionprops_from_labels, regionprops_from_mask
 
 
@@ -156,18 +169,63 @@ def extract_candidates_from_mask(
     return cand, overflow
 
 
+def stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwargs: dict):
+    """Segmentation and stage-A candidates of a batch by the segment_fn's
+    route: boolean masks (`returns_mask`) through the run-length connected
+    components, label maps with `runs_props` through the run-length
+    regionprops, other label maps through the pixel regionprops.  Returns
+    (Candidates, overflow (B,), the segment_fn's masks or label maps)."""
+    kw = dict(candidate_kwargs)
+    out = segment_fn(segs)
+    seg_ovf = None
+    if getattr(segment_fn, "returns_overflow", False):
+        out, seg_ovf = out
+    if getattr(segment_fn, "returns_mask", False):
+        kw.pop("fg_fraction", None)
+        cand, ovf = extract_candidates_from_mask(out, greens, **kw)
+    elif getattr(segment_fn, "runs_props", False):
+        kw.pop("fg_fraction", None)
+        kw.pop("connectivity", None)
+        cand, ovf = extract_candidates_from_labels_runs(out, greens, **kw)
+    else:
+        kw.pop("rcap", None)
+        kw.pop("connectivity", None)
+        cand = extract_candidates(out, greens, **kw)
+        ovf = torch.zeros(segs.shape[0], dtype=torch.bool, device=segs.device)
+    if seg_ovf is not None:
+        ovf = ovf | seg_ovf
+    return cand, ovf, out
+
+
+def preprocess_buckets(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
+                       heights_h: torch.Tensor, widths_h: torch.Tensor, valid_h: torch.Tensor,
+                       caps: tuple = (64, 96), chunk: int = 128, out_size: int = 64,
+                       clip_limit: float = 0.02):
+    """Stage B of the (N, cap, cap) crop slots with heights and widths (N,)
+    on the device: CLAHE once a size bucket (`ops.clahe.size_buckets`,
+    from the host copies `heights_h`, `widths_h`, `valid_h`: no wait on
+    the device), then the resize in chunks.  Yields (slot ids (n,) on the
+    device, cells (n, out_size, out_size)); the buckets only pad the
+    layout, so the cells do not depend on them."""
+    for idx, cap_b, ns_cap in size_buckets(heights_h, widths_h, valid_h, caps, crops.shape[-1]):
+        if idx.numel() == 0:
+            continue
+        idx = idx.to(crops.device, non_blocking=True)
+        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b, clip_limit=clip_limit,
+                              ns_cap=ns_cap)
+        for start in range(0, idx.numel(), chunk):
+            ids = idx[start:start + chunk]
+            yield ids, resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
+                                    out_size=out_size)
+
+
 @torch.inference_mode()
 def extract_cells_chunked(labels: torch.Tensor, green: torch.Tensor, chunk: int = 128,
                           caps: tuple = (64, 96), out_size: int = 64,
                           clip_limit: float = 0.02, **candidate_kwargs):
     """One frame's label map (H, W) and raw green channel (H, W) -> (cells
     (n, out, out) float32 numpy in ascending label order, stats dict of
-    numpy arrays): stage A once, then CLAHE (once a size bucket) and the
-    resize in chunks.  The buckets are `ops.clahe.size_buckets`';
-    the capacity only pads the layout, so the cells do not depend on them."""
-    from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, size_buckets
-    from cell_image_analysis_tpu_torch.ops.resize import resize_cells
-
+    numpy arrays): stage A once, then stage B (`preprocess_buckets`)."""
     cand = extract_candidates(labels[None], green[None], **candidate_kwargs)
     n = int(cand.n_valid[0])
     stats = {k: getattr(cand, k)[0, :n].cpu().numpy()
@@ -175,16 +233,56 @@ def extract_cells_chunked(labels: torch.Tensor, green: torch.Tensor, chunk: int 
     cells = torch.zeros((n, out_size, out_size), dtype=torch.float32, device=green.device)
     if n == 0:
         return cells.cpu().numpy(), stats
-    crops = cand.crops[0].float().contiguous()
     heights, widths = cand.heights[0].int(), cand.widths[0].int()
-    for idx, cap_b, ns_cap in size_buckets(heights, widths, cand.valid[0], caps,
-                                           crops.shape[-1]):
-        if idx.numel() == 0:
-            continue
-        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b, clip_limit=clip_limit,
-                              ns_cap=ns_cap)
-        for start in range(0, idx.numel(), chunk):
-            ids = idx[start:start + chunk]
-            cells[ids] = resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
-                                      out_size=out_size)
+    for ids, c in preprocess_buckets(cand.crops[0].float().contiguous(), heights, widths,
+                                     heights, widths, cand.valid[0], caps=caps, chunk=chunk,
+                                     out_size=out_size, clip_limit=clip_limit):
+        cells[ids] = c
     return cells.cpu().numpy(), stats
+
+
+@torch.inference_mode()
+def extract_cells_frames(segs: torch.Tensor, greens: torch.Tensor, segment_fn,
+                         fallback_segment_fn=None, chunk: int = 128, caps: tuple = (64, 96),
+                         out_size: int = 64, clip_limit: float = 0.02,
+                         return_labels: bool = False, **candidate_kwargs):
+    """Batched extraction of (B, H, W) same-shape frames: `stage_a` through
+    `segment_fn` once for the batch (the whole batch re-runs through
+    `fallback_segment_fn` when a capacity flag fires in any frame; without
+    one the port warns), the candidates pooled across frames, then stage B
+    over the pool.  Returns (cells (n, out, out) float32 numpy in
+    frame-major, label-ascending order, stats dict of numpy arrays with
+    `frame_index`); with `return_labels` also the (B, H, W) uint16 label
+    maps as numpy, for which the segment_fn must return label maps."""
+    cand, ovf, seg_out = stage_a(segment_fn, segs, greens, candidate_kwargs)
+    if bool(ovf.any()):
+        if fallback_segment_fn is not None:
+            return extract_cells_frames(segs, greens, fallback_segment_fn, chunk=chunk, caps=caps,
+                                        out_size=out_size, clip_limit=clip_limit,
+                                        return_labels=return_labels, **candidate_kwargs)
+        warnings.warn(
+            "extract_cells_frames: capacity overflow with no fallback_segment_fn — "
+            "candidate extraction may have dropped or corrupted cells",
+            RuntimeWarning, stacklevel=2)
+    if return_labels and getattr(segment_fn, "returns_mask", False):
+        raise ValueError("return_labels needs a segment_fn that returns label maps")
+    B, ccap, full_cap = cand.crops.shape[:3]
+    flat = {k: getattr(cand, k).reshape(-1) for k in (
+        "heights", "widths", "valid", "label_ids", "area", "eccentricity", "mean_intensity",
+        "std_intensity")}
+    host = {k: v.cpu() for k, v in flat.items()}
+    pool = torch.nonzero(host["valid"]).flatten()       # frame-major, label-ascending
+    stats = {k: host[k][pool].numpy() for k in (
+        "label_ids", "area", "eccentricity", "mean_intensity", "std_intensity")}
+    stats["frame_index"] = (pool // ccap).numpy()
+    labels16 = None
+    if return_labels:
+        labels16 = seg_out.int().cpu().numpy().astype(np.uint16)
+    crops = cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous()
+    slots = torch.zeros((B * ccap, out_size, out_size), dtype=torch.float32, device=segs.device)
+    for ids, c in preprocess_buckets(crops, flat["heights"].int(), flat["widths"].int(),
+                                     host["heights"], host["widths"], host["valid"], caps=caps,
+                                     chunk=chunk, out_size=out_size, clip_limit=clip_limit):
+        slots[ids] = c
+    cells = slots[pool.to(segs.device)].cpu().numpy()
+    return (cells, stats, labels16) if return_labels else (cells, stats)

@@ -6,6 +6,15 @@ Counterpart of `cell_image_analysis_tpu/ops/percentile.py`:
 uses, computed in python float64 (`percentile_ranks`), and lerps them in
 float32.  JAX selects them with a sort-free bisection; the values are the
 same.
+
+`percentile` (any q, any axis) and `median_iqr` (the RobustScaler's fit)
+sort, as JAX's do, and do JAX's rank arithmetic in float32: the index
+`q / 100 * (n - 1)`, its floor and ceiling, and the lerp.  XLA compiles
+JAX's lerp `lo * (1 - f) + hi * f` into a fused multiply-add of the low
+term, so the port adds the exact float64 product `lo * (1 - f)` to the
+float32 `hi * f` and rounds once; the scaler's fit then equals JAX's bit
+for bit (the float64 sum could round twice only where it needs more than
+53 bits, which the tests have not met).
 """
 
 from __future__ import annotations
@@ -58,3 +67,29 @@ def normalize_percentile(x: torch.Tensor, pmin: float = 3.0, pmax: float = 99.8,
     hi = lohi[:, 1].reshape(-1, 1, 1)
     out = (xb - lo) / (hi - lo + torch.full((), eps, dtype=torch.float32, device=x.device))
     return out[0] if single else out
+
+
+def percentile(x: torch.Tensor, q, axis: int | None = None) -> torch.Tensor:
+    """numpy-compatible percentile (linear interpolation) of `x` along
+    `axis` (flattened when None), for a scalar or 1-D `q` in [0, 100]; a
+    1-D q gives a leading axis of len(q).  The rank arithmetic is float32,
+    as JAX's `ops.percentile.percentile`."""
+    q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
+    if axis is None:
+        xs = torch.sort(x.reshape(-1)).values
+    else:
+        xs = torch.movedim(torch.sort(x, dim=axis).values, axis, 0)
+    n = xs.shape[0]
+    idx = q / 100.0 * (n - 1)
+    lo, hi = torch.floor(idx).long(), torch.ceil(idx).long()
+    frac = idx - lo.float()
+    if frac.dim():  # broadcast (Q,) weights over the remaining axes
+        frac = frac.reshape(frac.shape + (1,) * (xs.dim() - 1))
+    return (xs[lo].double() * (1.0 - frac).double() + (xs[hi] * frac).double()).float()
+
+
+def median_iqr(x: torch.Tensor) -> tuple:
+    """Per-feature median and interquartile range of an (N, D) matrix; the
+    caller maps a zero range to 1 (sklearn's RobustScaler)."""
+    qs = percentile(x, [25.0, 50.0, 75.0], axis=0)
+    return qs[1], qs[2] - qs[0]

@@ -16,10 +16,11 @@ Counterpart of `cell_image_analysis_tpu/pipeline/scoring.py`:
   one batch in flight;
 - `compute_anomaly_scores`: `score_cells` on host cells, as a dict.
 
-Stage A takes one of JAX `_stage_a_one`'s three routes, by the
-segment_fn's flags: boolean masks (`returns_mask`) through the run-length
-connected components, label maps with `runs_props` through the run-length
-regionprops, other label maps through the pixel regionprops.  When a
+Stage A (`ops.extract.stage_a`) takes one of JAX `_stage_a_one`'s three
+routes, by the segment_fn's flags: boolean masks (`returns_mask`) through
+the run-length connected components, label maps with `runs_props` through
+the run-length regionprops, other label maps through the pixel
+regionprops; stage B is `ops.extract.preprocess_buckets`.  When a
 capacity flag fires in any frame (a run table's `rcap`, or a flag the
 segment_fn returns with `returns_overflow`), the whole batch re-runs
 through `fallback_segment_fn`, the exact twin; without one the port warns
@@ -35,15 +36,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cell_image_analysis_tpu_torch.models.ensemble import ensemble_votes
 from cell_image_analysis_tpu_torch.models.svm import SVMParams, decision_function
-from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, size_buckets
-from cell_image_analysis_tpu_torch.ops.extract import (
-    extract_candidates,
-    extract_candidates_from_labels_runs,
-    extract_candidates_from_mask,
-)
+from cell_image_analysis_tpu_torch.ops.extract import preprocess_buckets, stage_a
 from cell_image_analysis_tpu_torch.ops.fft_features import fft_features
-from cell_image_analysis_tpu_torch.ops.resize import resize_cells
 
 
 class ScoringParams(NamedTuple):
@@ -93,8 +89,7 @@ def score_cells(model, params: ScoringParams, X: torch.Tensor, min_votes: int = 
     d_cons = decision_function(params.svm_conservative, reduced)
     d_mod = decision_function(params.svm_moderate, reduced)
     p_cons, p_mod = _pm1(d_cons), _pm1(d_mod)
-    votes = ((mse > params.ensemble_mse_threshold).int() + (p_cons == -1).int()
-             + (p_mod == -1).int())
+    votes = ensemble_votes(mse, p_cons, p_mod, params.ensemble_mse_threshold)
     p_ens = torch.where(votes >= min_votes, -1, 1).int()
 
     fft = fft_features(X)
@@ -117,31 +112,6 @@ def _score_rows(s: CellScores) -> torch.Tensor:
             s.moderate_predictions, s.conservative_scores, s.moderate_scores,
             s.ensemble_predictions, s.fft_predictions, s.fft_scores]
     return torch.cat([torch.stack([c.float() for c in cols], dim=1), s.fft], dim=1)
-
-
-def _stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwargs: dict):
-    """Segmentation and stage-A candidates of a batch by the segment_fn's
-    route; returns (Candidates, overflow (B,))."""
-    kw = dict(candidate_kwargs)
-    out = segment_fn(segs)
-    seg_ovf = None
-    if getattr(segment_fn, "returns_overflow", False):
-        out, seg_ovf = out
-    if getattr(segment_fn, "returns_mask", False):
-        kw.pop("fg_fraction", None)
-        cand, ovf = extract_candidates_from_mask(out, greens, **kw)
-    elif getattr(segment_fn, "runs_props", False):
-        kw.pop("fg_fraction", None)
-        kw.pop("connectivity", None)
-        cand, ovf = extract_candidates_from_labels_runs(out, greens, **kw)
-    else:
-        kw.pop("rcap", None)
-        kw.pop("connectivity", None)
-        cand = extract_candidates(out, greens, **kw)
-        ovf = torch.zeros(segs.shape[0], dtype=torch.bool, device=segs.device)
-    if seg_ovf is not None:
-        ovf = ovf | seg_ovf
-    return cand, ovf
 
 
 def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens: torch.Tensor,
@@ -180,7 +150,7 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
     takes the handle.  A caller with many batches starts batch k+1 before
     it waits on batch k, so that the host's part of k overlaps the device's
     stage A of k+1."""
-    cand, ovf = _stage_a(segment_fn, segs, greens, candidate_kwargs)
+    cand, ovf, _ = stage_a(segment_fn, segs, greens, candidate_kwargs)
     B, ccap, full_cap = cand.crops.shape[:3]
     flat = [t.reshape(-1) for t in (cand.heights, cand.widths, cand.valid, cand.label_ids,
                                     cand.area)]
@@ -232,21 +202,13 @@ def score_frames_fused_wait(pend: dict) -> tuple:
 
     crops, heights, widths = pend["crops"], pend["heights"], pend["widths"]
     dev = crops.device
-    chunk = pend["chunk"]
     rows = torch.zeros((N, _FUSED_D), dtype=torch.float32, device=dev)
-    # the buckets come from the host copies: no wait on the device for them
-    for idx, cap_b, ns_cap in size_buckets(heights_h, widths_h, valid_h, pend["caps"], full_cap):
-        if idx.numel() == 0:
-            continue
-        idx = idx.to(dev, non_blocking=True)
-        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b,
-                              clip_limit=pend["clip_limit"], ns_cap=ns_cap)
-        for start in range(0, idx.numel(), chunk):
-            ids = idx[start:start + chunk]
-            eq = eq_all[start:start + chunk]
-            cells = resize_cells(eq, heights[ids], widths[ids], out_size=pend["out_size"])
-            rows[ids] = _score_rows(score_cells(pend["model"], pend["params"], cells[..., None],
-                                                min_votes=pend["min_votes"]))
+    for ids, cells in preprocess_buckets(crops, heights, widths, heights_h, widths_h, valid_h,
+                                         caps=pend["caps"], chunk=pend["chunk"],
+                                         out_size=pend["out_size"],
+                                         clip_limit=pend["clip_limit"]):
+        rows[ids] = _score_rows(score_cells(pend["model"], pend["params"], cells[..., None],
+                                            min_votes=pend["min_votes"]))
 
     pool = torch.nonzero(valid_h).flatten()
     stats_h = dict(label_ids=label_ids, area=area, eccentricity=floats[:N],

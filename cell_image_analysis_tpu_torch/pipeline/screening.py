@@ -21,11 +21,11 @@ import torch
 
 from cell_image_analysis_tpu_torch.config import PipelineConfig
 from cell_image_analysis_tpu_torch.io import artifacts
-from cell_image_analysis_tpu_torch.io.ingest import FrameStream, list_tiffs
+from cell_image_analysis_tpu_torch.io.ingest import FrameStream, frames_to_device, list_tiffs
 from cell_image_analysis_tpu_torch.models.segmentation import (
     StarDistBackend,
-    ThresholdBackend,
     segment_frame,
+    select_backend,
 )
 from cell_image_analysis_tpu_torch.ops.extract import extract_cells_chunked
 from cell_image_analysis_tpu_torch.pipeline import reports
@@ -56,24 +56,13 @@ class ProductionMutantScreening:
         self.timer = StageTimer()
         self.meter = ThroughputMeter()
         self.decode_seconds = 0.0  # TIFF decode, summed over the ingest workers
-        self._unet = None
-        self._segment_mask = None
-        if config.seg.backend == "threshold" or unet_variables is None:
-            # the mask route (run-length connected components), with the
-            # label route as the exact fallback of a run-table overflow
-            self._segment_mask = ThresholdBackend(config.seg)
-            self._segment = None
-            self._segment_fallback = self._segment_mask.exact_twin()
-        else:
-            # raster-capped predict_instances with the run-length label
-            # regionprops; the exact twin (scatter rasterizer, K^2 NMS pairs,
-            # pixel regionprops) takes every overflow re-run
-            seg_cfg = config.seg
-            if not seg_cfg.raster_cap:
-                seg_cfg = dataclasses.replace(seg_cfg, raster_cap=config.extract.cell_capacity)
-            self._segment = StarDistBackend(unet_variables, seg_cfg, device=self.device)
-            self._segment_fallback = self._segment.exact_twin()
-            self._unet = self._segment.model
+        # the threshold backend's mask route (run-length connected
+        # components) or raster-capped StarDist with the run-length label
+        # regionprops; the exact twin takes every overflow re-run
+        segment, self._segment_fallback, self._unet = select_backend(
+            config.seg, config.extract.cell_capacity, unet_variables, self.device)
+        self._segment_mask = segment if segment.returns_mask else None
+        self._segment = None if segment.returns_mask else segment
         # plate-scale backends: the capacities scale with the frame's area
         # (the defaults are tuned for frames up to 1024^2), keyed by shape
         self._plate_backends: dict = {}
@@ -191,15 +180,8 @@ class ProductionMutantScreening:
 
     def frames_to_device(self, channels: list) -> torch.Tensor:
         """Same-shape host channels -> one (B, H, W) float32 tensor on the
-        device.  For the card they are cast into pinned memory and copied
-        without waiting, so the copy does not hold up the batch in flight."""
-        pinned = self.device.type == "cuda"
-        host = torch.empty((len(channels), *channels[0].shape), dtype=torch.float32,
-                           pin_memory=pinned)
-        buf = host.numpy()
-        for i, c in enumerate(channels):
-            buf[i] = c
-        return host.to(self.device, non_blocking=True) if pinned else host
+        screener's device (`io.ingest.frames_to_device`)."""
+        return frames_to_device(channels, self.device)
 
     def _score_sample_frames(self, tif_files: list) -> tuple[dict, list, list]:
         """Screen one sample: frames stream in, stack into same-shape

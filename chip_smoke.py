@@ -82,7 +82,26 @@ Phases (any failure exits non-zero before the last line is printed):
 9. `python -m cell_image_analysis_tpu_torch.cli screen` in a subprocess on
    `mutantA` (exit 0, summary CSV), and on a model directory that does not
    exist (exit code not 0);
-10. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+10. training on the card: `ImprovedAnomalyDetectionTraining` on phase 7's
+   `wildtype` folder (40 frames of 1024^2, so five extraction batches of
+   8) at `PipelineConfig()` defaults but `TRAIN_EPOCHS` epochs, no
+   figures, the CAE at full width (32/64/32).  The counts are set to 0
+   before the timed run and read after it (each kernel's
+   `training_launches`; Winograd, segment sum and CLAHE must be > 0); the
+   store's ten files and the four CSV and report files must exist, and the
+   port's screener must load the store and screen `mutantA`.  Then the
+   five batches are extracted again with every kernel call held against
+   its plain version (`_HeldAgainstPlain`: B = 8, label capacity 1024, 8 x
+   512 crop slots, the exact twin's pixel table) and must give the timed
+   run's cells.  Card against CPU from one init made without JAX: (a) two
+   frames cut to 512^2 through `extract_batch`: the same cells, those of
+   equal area within TOL, at most 2 whose area differs (label pixels at a
+   polygon's knife edge); (b) one epoch of `fit_cae` on 512 of the
+   extracted cells, augmentation off: each history value within
+   `TRAIN_RTOL`.  Printed: the `StageTimer` stages, extraction cells/s,
+   training images/s, detector-fit seconds (SMO included), the solidity
+   loop's seconds and peak device memory, with the `nvidia-smi` line;
+11. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -126,7 +145,13 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+TRAIN_EPOCHS = 5  # phase 10's epochs (the CAE's width is never cut)
+# phase 10 (b): one epoch card against CPU from one init; cuDNN and the
+# CPU's convolutions sum in other orders, and the batch-statistics
+# BatchNorm and Adam carry that through 12 steps: at most 2.36e-4, 2.17e-4
+# and 2.13e-4 in three runs on an H100 80GB HBM3 at 700 W
+TRAIN_RTOL = 1e-3
 STORE = os.path.join(REPO, "assets", "screening_store_synthetic")
 # phase 7's sample folders: (name, frames, seed, mutant_fraction, crop)
 SAMPLES = (("wildtype", 40, 21, 0.0, None), ("mutantA", 8, 22, 0.7, None),
@@ -242,10 +267,11 @@ def stage_a_buckets(torch, segment_fn, segs, greens, candidate_kwargs) -> dict:
     """A path's stage A on the 16 frames, as `score_frames_fused` runs it:
     the candidates' crops (N, 192, 192), heights and widths (N,) and the
     size buckets [(ids, cap, ns_cap)]."""
-    from cell_image_analysis_tpu_torch.pipeline.scoring import _stage_a, size_buckets
+    from cell_image_analysis_tpu_torch.ops.clahe import size_buckets
+    from cell_image_analysis_tpu_torch.ops.extract import stage_a
 
     with torch.inference_mode():
-        cand, _ = _stage_a(segment_fn, segs, greens, candidate_kwargs)
+        cand, _, _ = stage_a(segment_fn, segs, greens, candidate_kwargs)
     B, ccap, full_cap = cand.crops.shape[:3]
     crops = cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous()
     heights, widths = cand.heights.reshape(-1).int(), cand.widths.reshape(-1).int()
@@ -1207,6 +1233,145 @@ def phase_cli(folders: dict, out_root: str, figures: bool) -> None:
         f"({bad.stderr.strip().splitlines()[-1][:120]})")
 
 
+def phase_training(torch, dev, unet_vars, folders: dict, out_root: str, figures: bool) -> dict:
+    import copy
+    import dataclasses
+
+    from cell_image_analysis_tpu_torch.config import (
+        ARTIFACT_BEST_AUTOENCODER,
+        ARTIFACT_DETECTOR_CONSERVATIVE,
+        ARTIFACT_DETECTOR_MODERATE,
+        ARTIFACT_ENCODER,
+        ARTIFACT_FINAL_AUTOENCODER,
+        ARTIFACT_PCA,
+        ARTIFACT_SCALER,
+        AugmentConfig,
+        PipelineConfig,
+        TrainConfig,
+    )
+    from cell_image_analysis_tpu_torch.io.ingest import FrameStream, frames_to_device, list_tiffs
+    from cell_image_analysis_tpu_torch.models.cae import init_cae
+    from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
+    from cell_image_analysis_tpu_torch.pipeline.training import ImprovedAnomalyDetectionTraining
+    from cell_image_analysis_tpu_torch.train import trainer as trainer_mod
+
+    cfg = dataclasses.replace(PipelineConfig(), train=TrainConfig(epochs=TRAIN_EPOCHS))
+    out = os.path.join(out_root, "train_stardist")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        trainer = ImprovedAnomalyDetectionTraining(out, cfg, unet_vars)
+    if trainer.device.type != dev.type:
+        raise AssertionError(f"[10] the trainer's default device is {trainer.device}")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    try:   # the timed run: nothing of the smoke's stands in the trainer's way
+        with contextlib.redirect_stdout(printed):
+            ok, t_all = _timed(torch, lambda: trainer.run(folders["wildtype"], figures=False))
+    finally:
+        log(printed.getvalue().rstrip())
+    launches = _read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    smi = smi_line()
+    if not ok:
+        raise AssertionError("[10] training returned False")
+    missing = [k for k in ("winograd_conv3x3", "segment_sum", "clahe_cells") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"[10] kernels of the training path were not launched: {missing}")
+    store = (ARTIFACT_BEST_AUTOENCODER, ARTIFACT_FINAL_AUTOENCODER, ARTIFACT_ENCODER,
+             ARTIFACT_SCALER, ARTIFACT_PCA, ARTIFACT_DETECTOR_CONSERVATIVE,
+             ARTIFACT_DETECTOR_MODERATE, "ensemble.json", "fft_scaler.pkl", "detector_fft.pkl")
+    reports_ = ("cell_statistics.csv", "file_summary.csv", "data_quality_report.txt",
+                "training_report.txt")
+    for name in store + reports_:
+        if not os.path.getsize(os.path.join(out, name)) > 0:
+            raise AssertionError(f"[10] {name} is missing or empty")
+    with open(os.path.join(out, "cell_statistics.csv")) as f:
+        n_cells = sum(1 for _ in f) - 1
+    timer = trainer.timer
+    n_train = n_cells - int(np.ceil(cfg.train.val_split * n_cells))
+    n_frames = len(list_tiffs(folders["wildtype"]))
+    log(f"[10] trained on {n_cells} cells of {n_frames} frames in {t_all:.3f} s: the ten "
+        f"store files and the four CSV and report files written; launches {launches}")
+    log(f"[10] {timer.report().replace(chr(10), ' |')} [{smi}]")
+    log(f"[10] extraction: {n_cells / timer.totals['extract_batch']:.1f} cells/s "
+        f"({timer.totals['extract_batch']:.3f} s in {timer.counts['extract_batch']} batches, "
+        f"the solidity loop's {timer.totals['solidity']:.3f} s outside it); training: "
+        f"{n_train * TRAIN_EPOCHS / timer.totals['train_cae']:.1f} images/s over "
+        f"{TRAIN_EPOCHS} epoch(s) of {n_train} cells ({timer.totals['train_cae']:.3f} s); "
+        f"detector fits, SMO included: {timer.totals['detector_fit']:.3f} s; peak device "
+        f"memory {peak_gib:.2f} GiB [{smi}]")
+
+    # the port's screener reads the store that the port trained
+    with contextlib.redirect_stdout(io.StringIO()):
+        screener = ProductionMutantScreening(out, PipelineConfig(), unet_vars)
+        results, detailed = screener.screen_mutant_samples(
+            {"mutantA": folders["mutantA"]}, os.path.join(out_root, "screen_trained"),
+            figures=figures)
+    r = results["mutantA"]
+    if r["total_cells"] < 80 or not np.all(np.isfinite([d["mse"] for d in detailed])):
+        raise AssertionError(f"[10] screening with the trained store: {r}")
+    log(f"[10] the screener read the trained store and screened mutantA: {r['total_cells']} "
+        f"cells, rates conservative {r['conservative_anomaly_rate']:.4f}, moderate "
+        f"{r['moderate_anomaly_rate']:.4f}, ensemble {r['ensemble_anomaly_rate']:.4f}, fft "
+        f"{r['fft_anomaly_rate']:.4f}")
+
+    # the five batches again, every kernel call held against its plain version
+    frames = [(seg, green) for _, seg, green in FrameStream(list_tiffs(folders["wildtype"]))]
+    held_cells = []
+    with _HeldAgainstPlain(torch) as held:
+        for at in range(0, len(frames), 8):
+            batch = frames[at:at + 8]
+            segs = frames_to_device([f[0] for f in batch], dev)
+            greens = frames_to_device([f[1] for f in batch], dev)
+            held_cells.append(trainer.extract_batch(segs, greens)[0])
+    held.report("[10]", needed=("winograd_conv3x3", "segment_sum", "clahe_cells"))
+    cells = np.concatenate(held_cells)
+    if len(cells) != n_cells:
+        raise AssertionError(f"[10] the held extraction found {len(cells)} cells, the timed "
+                             f"run {n_cells}")
+
+    # card against CPU from one init made without JAX
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = ImprovedAnomalyDetectionTraining(os.path.join(out_root, "train_cpu"), cfg,
+                                               unet_vars, device="cpu")
+    two = [(seg[:512, :512], green[:512, :512]) for seg, green in frames[:2]]
+    got, ref = (t.extract_batch(frames_to_device([f[0] for f in two], d),
+                                frames_to_device([f[1] for f in two], d))
+                for t, d in ((trainer, dev), (cpu, torch.device("cpu"))))
+    if len(got[0]) != len(ref[0]) or len(got[0]) < 10:
+        raise AssertionError(f"[10] two 512^2 frames: {len(got[0])} cells on the card, "
+                             f"{len(ref[0])} on the CPU")
+    same = got[1]["area"] == ref[1]["area"]
+    if int((~same).sum()) > 2:
+        raise AssertionError(f"[10] two 512^2 frames: {len(got[0])} cells on the card, "
+                             f"{len(ref[0])} on the CPU, {int((~same).sum())} of other area")
+    worst = float(np.abs(got[0][same] - ref[0][same]).max())
+    if worst > TOL:
+        raise AssertionError(f"[10] two 512^2 frames: cells differ by {worst:.3e}")
+    log(f"[10] extraction card vs CPU, two frames cut to 512^2: {len(got[0])} cells on both, "
+        f"max difference {worst:.3e}; cells whose area differs: {int((~same).sum())}")
+
+    init = init_cae(torch.Generator().manual_seed(0))
+    real_init = trainer_mod.init_cae
+    trainer_mod.init_cae = lambda generator, **kw: copy.deepcopy(init).to(generator.device)
+    off = AugmentConfig(rotation_range=0, width_shift_range=0, height_shift_range=0,
+                        zoom_range=0, horizontal_flip=False, vertical_flip=False)
+    one = TrainConfig(epochs=1)
+    try:
+        hist = [trainer_mod.fit_cae(torch.as_tensor(cells[:512], device=d), train_cfg=one,
+                                    aug_cfg=off, verbose=False)[2].history
+                for d in (dev, torch.device("cpu"))]
+    finally:
+        trainer_mod.init_cae = real_init
+    rel = {k: abs(hist[0][k][0] - hist[1][k][0]) / abs(hist[1][k][0])
+           for k in ("loss", "mae", "val_loss", "val_mae")}
+    if max(rel.values()) > TRAIN_RTOL:
+        raise AssertionError(f"[10] one epoch card vs CPU: relative differences {rel}")
+    log(f"[10] one epoch of fit_cae on 512 cells, card vs CPU from one init: relative "
+        f"differences {', '.join(f'{k} {v:.2e}' for k, v in rel.items())} (gate {TRAIN_RTOL})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(str(p) for p in sorted(ALL_PHASES)),
@@ -1236,12 +1401,21 @@ def main() -> int:
         for m in ("pandas", "matplotlib", "seaborn")))
     tmp_root = tempfile.mkdtemp(prefix="chip_smoke_")
     pool = None
+    clock = {"start": time.perf_counter()}
+
+    def mark(phase: str) -> None:
+        """Seconds since the previous mark, under the phase's name."""
+        now = time.perf_counter()
+        clock[phase] = now - clock.pop("at", clock["start"])
+        clock["at"] = now
+
     try:
-        if phases & {7, 8, 9}:
+        if phases & {7, 8, 9, 10}:
             # the sample folders are written while phases 1-3 run
             pool, futures, folders = start_sample_folders(tmp_root)
         if 1 in phases:
             phase_build()
+            mark("1")
         segs = greens = main_a = None
         if phases & {2, 3, 5, 6}:
             segs, greens = make_frames(torch, dev)
@@ -1259,22 +1433,27 @@ def main() -> int:
                 {k: v for k, v in THRESH_KW.items() if k not in ("chunk", "caps")}, rcap=32))
             kernels = phase_kernels(torch, dev, unet_vars, main_a, thresh_a)
             del thresh_a
+            mark("2")
         launches, main_result, backend = {}, None, None
         if 3 in phases:
             n_buckets = sum(1 for ids, _, _ in main_a["buckets"] if ids.numel())
             launches, main_result, backend = phase_main_path(torch, dev, unet_vars, seg_cfg,
                                                              stage_a, segs, greens, n_buckets)
+            mark("3")
         if 4 in phases:
             phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a)
+            mark("4")
         params_model = load_scoring_params(device=dev)
         if 5 in phases:
             launches_a, launches_b = phase_threshold(torch, dev, segs, greens, params_model)
             launches["cc_tile_labels"] = launches_b["cc_tile_labels"]
             if 2 in phases:
                 kernels["clahe_cells"]["threshold_launches"] = launches_a["clahe_cells"]
+            mark("5")
         if 6 in phases and 3 in phases:
             phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
                        main_result)
+            mark("6")
         del segs, greens, main_a, main_result
         torch.cuda.empty_cache()
         screening_launches = {}
@@ -1286,14 +1465,26 @@ def main() -> int:
         if 7 in phases:
             screening_launches = phase_screening(torch, dev, unet_vars, folders, tmp_root,
                                                  figures)
+            mark("7")
         if 8 in phases:
             phase_threshold_screener(torch, dev, unet_vars, folders, tmp_root, figures)
+            mark("8")
         if 9 in phases:
             phase_cli(folders, tmp_root, figures)
+            mark("9")
+        training_launches = {}
+        if 10 in phases:
+            training_launches = phase_training(torch, dev, unet_vars, folders, tmp_root, figures)
+            mark("10")
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp_root, ignore_errors=True)
+    clock.pop("at", None)
+    total = time.perf_counter() - clock.pop("start")
+    log(f"wall seconds by phase (the time since the previous phase ended, so phase 2 includes "
+        f"making the 16 frames): {', '.join(f'{k} {v:.1f}' for k, v in clock.items())}; "
+        f"total {total:.1f}")
     if phases != ALL_PHASES:
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -1312,7 +1503,8 @@ def main() -> int:
     # phase 5 (b), the label route); `launches_per_batch`: the kernel
     # launches on the card they make (a CC call is the module's
     # KERNELS_PER_CALL); `screening_launches`: wrapper calls while phase 7
-    # screened its folders; `ms` is the
+    # screened its folders; `training_launches`: wrapper calls while phase
+    # 10 trained (its timed run); `ms` is the
     # kernel's device time (torch.profiler), `event_ms` one event-timed
     # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
     modules = _kernel_modules()
@@ -1320,6 +1512,7 @@ def main() -> int:
                  launches=launches[name],
                  launches_per_batch=launches[name] * getattr(modules[name], "KERNELS_PER_CALL", 1),
                  screening_launches=screening_launches[name],
+                 training_launches=training_launches[name],
                  **kernels[name])
             for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))

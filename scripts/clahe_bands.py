@@ -43,10 +43,10 @@ def main() -> int:
     from cell_image_analysis_tpu_torch.config import SegConfig
     from cell_image_analysis_tpu_torch.io.artifacts import load_unet_variables
     from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend, ThresholdBackend
-    from cell_image_analysis_tpu_torch.ops.clahe import clahe_cells_plain
+    from cell_image_analysis_tpu_torch.ops.clahe import clahe_cells_plain, size_buckets
     from cell_image_analysis_tpu_torch.ops.cuda._build import check, library, stream_ptr
     from cell_image_analysis_tpu_torch.ops.cuda.clahe_kernel import default_bands
-    from cell_image_analysis_tpu_torch.pipeline.scoring import _stage_a, size_buckets
+    from cell_image_analysis_tpu_torch.ops.extract import stage_a
     from cell_image_analysis_tpu_torch.utils.synthetic import make_frame
 
     print(smi_line(), flush=True)
@@ -64,7 +64,7 @@ def main() -> int:
 
     def buckets(segment_fn, kw):
         with torch.inference_mode():
-            cand, _ = _stage_a(segment_fn, segs, greens, kw)
+            cand, _, _ = stage_a(segment_fn, segs, greens, kw)
         B, ccap, full_cap = cand.crops.shape[:3]
         crops = cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous()
         hs, ws = cand.heights.reshape(-1).int(), cand.widths.reshape(-1).int()

@@ -70,20 +70,27 @@ def bucket_loop_split(torch, run, n: int = 3) -> dict:
     and scoring call of `score_frames_fused` timed between two
     synchronizations, summed by part a run; the best run of each part
     (ms), and the CLAHE calls of a run."""
+    from cell_image_analysis_tpu_torch.ops import extract
     from cell_image_analysis_tpu_torch.pipeline import scoring
 
-    parts = {name: "CLAHE" for name in vars(scoring) if name.startswith("clahe")}
-    parts.update(resize_cells="resize", score_cells="scoring")
-    originals = {name: getattr(scoring, name) for name in parts}
+    # the loop's calls, in the module that makes them (a checkout's bucket
+    # loop lives in pipeline/scoring or, since its split, in ops/extract)
+    parts = {}
+    for module in (scoring, extract):
+        for name in vars(module):
+            if name.startswith("clahe") or name == "resize_cells":
+                parts[(module, name)] = "CLAHE" if name.startswith("clahe") else "resize"
+    parts[(scoring, "score_cells")] = "scoring"
+    originals = {key: getattr(*key) for key in parts}
     acc = {}
 
-    def wrap(name):
+    def wrap(key):
         def timed_call(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = originals[name](*args, **kw)
+            out = originals[key](*args, **kw)
             torch.cuda.synchronize()
-            part = parts[name]
+            part = parts[key]
             acc[part] = acc.get(part, 0.0) + (time.perf_counter() - t0) * 1e3
             acc[part + " calls"] = acc.get(part + " calls", 0) + 1
             return out
@@ -91,15 +98,15 @@ def bucket_loop_split(torch, run, n: int = 3) -> dict:
 
     best = {}
     try:
-        for name in parts:
-            setattr(scoring, name, wrap(name))
+        for key in parts:
+            setattr(*key, wrap(key))
         for _ in range(n):
             acc.clear()
             run()
             best = {k: min(v, best.get(k, v)) for k, v in acc.items()}
     finally:
-        for name, fn in originals.items():
-            setattr(scoring, name, fn)
+        for (module, name), fn in originals.items():
+            setattr(module, name, fn)
     return {"CLAHE": best["CLAHE"], "resize": best["resize"], "scoring": best["scoring"],
             "launches of CLAHE": best["CLAHE calls"]}
 

@@ -29,7 +29,7 @@ torch_threads()
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORE = os.path.join(_REPO, "assets", "screening_store_synthetic")
 # the TPU and mesh knobs, and the training flags (JAX's parser shares them
-# with `train`, which the port does not have yet)
+# between its commands; the port's `train` adds them to its own parser)
 _LEFT_OUT = {"unet_winograd", "unet_hilo", "unet_wb16", "mesh", "epochs", "batch_size",
              "min_cells"}
 
@@ -69,7 +69,7 @@ def test_overrides_reach_the_config():
     assert cli.parse_samples(p, args) == {"a": "b"}
     assert cli._apply_overrides(PipelineConfig(), p.parse_args(
         ["--models", "m", "--sample", "a=b"])) == PipelineConfig()
-    with pytest.raises(SystemExit):   # no training flag until `train` exists
+    with pytest.raises(SystemExit):   # the training flags belong to `train`
         p.parse_args(["--models", "m", "--sample", "a=b", "--epochs", "3"])
 
 
@@ -126,7 +126,7 @@ def test_bundled_weights_notices(tmp_path, capsys, monkeypatch):
      "--sample must be NAME=FOLDER"),
     (["screen", "--models", STORE, "--device", "cpu"], "at least one --sample"),
     (["screen", "--sample", "a=b"], "--models"),
-    (["train", "folder"], "invalid choice"),
+    (["bench"], "invalid choice"),
 ])
 def test_argument_errors_exit_2(argv, message, capsys):
     with pytest.raises(SystemExit) as e:

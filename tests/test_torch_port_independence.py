@@ -2,9 +2,12 @@
 
 - No file of `cell_image_analysis_tpu_torch/`, nor `chip_smoke.py`,
   `improved_detection_torch.py`, `improved_detection_v2_torch.py`,
-  `scripts/profile_torch_port.py`, `scripts/clahe_bands.py`,
-  `scripts/cc_split.py` or `scripts/cc_ablate.py`, imports
-  `jax` or anything of the JAX package (an AST scan, one case a file).
+  `CAE_improved_modeltrain_torch.py`, `scripts/profile_torch_port.py`,
+  `scripts/profile_torch_training.py`, `scripts/clahe_bands.py`,
+  `scripts/cc_split.py` or `scripts/cc_ablate.py`, imports `jax`,
+  `sklearn`, `pandas` or anything of the JAX package (an AST scan, one case
+  a file); the port's C++ sources include only standard headers and name
+  no file of the JAX package.
 - The port's `SegConfig` has the JAX defaults, field for field, and leaves
   out only the JAX package's TPU knobs; its other config classes have the
   JAX package's fields and defaults, `PipelineConfig` all but `sharding`;
@@ -32,10 +35,13 @@ _PORT_FILES = sorted(
     [os.path.relpath(p, _REPO) for p in
      glob.glob(os.path.join(_REPO, "cell_image_analysis_tpu_torch", "**", "*.py"), recursive=True)]
     + ["chip_smoke.py", "improved_detection_torch.py", "improved_detection_v2_torch.py",
-       os.path.join("scripts", "profile_torch_port.py"),
+       "CAE_improved_modeltrain_torch.py", os.path.join("scripts", "profile_torch_port.py"),
+       os.path.join("scripts", "profile_torch_training.py"),
        os.path.join("scripts", "clahe_bands.py"), os.path.join("scripts", "cc_split.py"),
        os.path.join("scripts", "cc_ablate.py")])
-_FORBIDDEN = ("jax", "jaxlib", "flax", "cell_image_analysis_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "pandas", "cell_image_analysis_tpu")
+_CPP_FILES = sorted(os.path.relpath(p, _REPO) for p in glob.glob(
+    os.path.join(_REPO, "cell_image_analysis_tpu_torch", "native", "*.cpp")))
 _TPU_KNOBS = {"unet_dtype", "unet_precision", "unet_lvl0_precision", "unet_lvl0_s2d",
               "unet_wb16", "unet_hilo", "unet_winograd"}
 
@@ -59,6 +65,15 @@ def test_port_file_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _CPP_FILES)
+def test_port_cpp_includes_only_standard_headers(path):
+    with open(os.path.join(_REPO, path)) as f:
+        text = f.read()
+    includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
+    assert includes and all(i.startswith("<") and i.endswith(">") for i in includes), includes
+    assert "cell_image_analysis_tpu/" not in text and "native/build" not in text
+
+
 def test_the_scan_covers_the_port():
     assert len(_PORT_FILES) >= 45
     assert "cell_image_analysis_tpu_torch/config.py" in _PORT_FILES
@@ -67,6 +82,11 @@ def test_the_scan_covers_the_port():
         assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
     assert "improved_detection_torch.py" in _PORT_FILES
     assert "improved_detection_v2_torch.py" in _PORT_FILES
+    assert "CAE_improved_modeltrain_torch.py" in _PORT_FILES
+    for name in ("pipeline/training.py", "train/trainer.py", "train/augment.py",
+                 "train/checkpoint.py", "models/smo.py", "ops/oracle/regionprops_np.py"):
+        assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
+    assert _CPP_FILES == ["cell_image_analysis_tpu_torch/native/svm_smo.cpp"]
     assert "cell_image_analysis_tpu_torch/utils/synthetic.py" in _PORT_FILES
     tree = ast.parse("import jax.numpy as jnp\nfrom cell_image_analysis_tpu.config import X\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "cell_image_analysis_tpu.config"]

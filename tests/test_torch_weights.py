@@ -54,7 +54,7 @@ def test_cae_carry_over_matches_flax():
     stats = jax.tree.map(lambda v: jnp.asarray(rng.uniform(0.5, 1.5, v.shape).astype(np.float32)),
                          variables["batch_stats"])
     variables = {"params": variables["params"], "batch_stats": stats}
-    model_t = CAE()
+    model_t = CAE().eval()   # inference: BatchNorm on the carried running statistics
     model_t.load_state_dict(cae_state_from_jax(variables))
     x = rng.uniform(size=(4, 64, 64, 1)).astype(np.float32)
     dec_j, enc_j = model_j.apply(variables, jnp.asarray(x), train=False)
