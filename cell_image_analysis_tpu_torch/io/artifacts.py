@@ -13,17 +13,20 @@
 - `load_screening_artifacts` reads a store written by either package;
   `build_scoring_params` turns it into `(CAE module, ScoringParams)`.
   `_StoreUnpickler` maps the JAX package's class paths onto the port's
-  classes, takes the port's own, lets numpy's array reconstructors through
-  and refuses every other global.  Genuine Keras models and sklearn
-  pickles (the JAX package's `io/keras_interop`) are not read yet and
-  raise `NotImplementedError`.
-- `load_unet_variables` reads the committed StarDist U-Net weights
-  (`assets/unet_synthetic.pkl`: a dict of numpy arrays in flax HWIO layout)
-  and checks their magic, as `utils/bench.load_synthetic_unet_variables`
-  does on the JAX side.
+  classes, takes the port's own, lets numpy's array reconstructors through,
+  lets sklearn's classes through when the file is an sklearn pickle, and
+  refuses every other global.  The reference's own files, genuine Keras
+  models and sklearn pickles, are converted by `io.keras_interop` (which
+  raises ImportError naming keras or sklearn where it is missing).
+- `load_unet_variables` reads StarDist U-Net weights (the committed
+  `assets/unet_synthetic.pkl`, or what `save_unet_variables` writes: a
+  dict of numpy arrays in flax HWIO layout) and checks their magic, as
+  `utils/bench.load_synthetic_unet_variables` does on the JAX side;
+  `save_unet_variables` writes a U-Net module in that payload, plain
+  numpy only, so the JAX package reads what the port trains.
 - `unet_state_from_jax` / `cae_state_from_jax` map flax variables onto the
-  port's `nn.Module` state dicts (HWIO -> OIHW); `cae_state_to_jax` is
-  the inverse of the latter.
+  port's `nn.Module` state dicts (HWIO -> OIHW); `unet_params_to_jax` and
+  `cae_state_to_jax` are their inverses.
 - `load_scoring_params` reads `assets/scoring_synthetic.npz`
   (scripts/make_torch_port_assets.py) into a `ScoringParams` of tensors,
   on the card unless the caller passes `device="cpu"`.
@@ -46,8 +49,6 @@ UNET_WEIGHTS_PATH = os.path.join(_REPO_ROOT, "assets", "unet_synthetic.pkl")
 SCORING_PARAMS_PATH = os.path.join(_REPO_ROOT, "assets", "scoring_synthetic.npz")
 _UNET_MAGIC = "cell_image_analysis_tpu/unet-synthetic-v1"
 _CAE_MAGIC = "cell_image_analysis_tpu/cae-v1"
-_KERAS_INTEROP = ("reading it is the JAX package's io/keras_interop, which "
-                  "cell_image_analysis_tpu_torch has not ported yet")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,6 +72,12 @@ def load_unet_variables(path: str | None = None) -> dict:
                        for name, layer in payload["params"].items()}}
 
 
+def _host(t) -> np.ndarray:
+    """A float32 numpy copy (never a view of a module's live parameters)."""
+    return np.array(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t,
+                    np.float32)
+
+
 def _hwio_to_oihw(kernel) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(
         np.asarray(kernel, np.float32).transpose(3, 2, 0, 1)))
@@ -85,6 +92,29 @@ def unet_state_from_jax(params: dict) -> dict:
         state[f"convs.{name}.weight"] = _hwio_to_oihw(layer["kernel"])
         state[f"convs.{name}.bias"] = torch.tensor(np.asarray(layer["bias"], np.float32))
     return state
+
+
+def unet_params_to_jax(state: dict) -> dict:
+    """The inverse of `unet_state_from_jax`: a `models.unet.StarDistUNet`
+    state dict -> flax params {'Conv_i': {'kernel' HWIO, 'bias'}} as
+    float32 numpy."""
+    params: dict = {}
+    for key, t in state.items():
+        _, name, leaf = key.split(".")
+        a = _host(t)
+        params.setdefault(name, {})["kernel" if leaf == "weight" else "bias"] = (
+            np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if leaf == "weight" else a)
+    return params
+
+
+def save_unet_variables(path: str, model, meta: dict | None = None) -> None:
+    """Write `model` (a `StarDistUNet`) as the JAX package's U-Net payload
+    {'magic', 'params' (flax layout, numpy), 'meta'}, which
+    `load_unet_variables` and the JAX package's
+    `utils/bench.load_synthetic_unet_variables` both read."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    _save_pickle(path, {"magic": _UNET_MAGIC, "params": unet_params_to_jax(model.state_dict()),
+                        "meta": dict(meta or {})})
 
 
 def cae_state_from_jax(variables: dict) -> dict:
@@ -113,14 +143,9 @@ def cae_state_to_jax(state: dict) -> dict:
     {'mean', 'var'}}} as float32 numpy."""
     params: dict = {}
     stats: dict = {}
-
-    def host(t):
-        return np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t,
-                          np.float32)
-
     for key, t in state.items():
         kind, idx, leaf = key.split(".")
-        a = host(t)
+        a = _host(t)
         if kind == "convs":
             layer = params.setdefault(f"Conv_{idx}", {})
             layer["kernel" if leaf == "weight" else "bias"] = (
@@ -211,7 +236,9 @@ _PLAIN_GLOBALS = {("copyreg", "_reconstructor"), ("copy_reg", "_reconstructor"),
 
 
 class _StoreUnpickler(pickle.Unpickler):
-    """Reads the store's pickles without importing the JAX package."""
+    """Reads the store's pickles without importing the JAX package.  An
+    sklearn pickle (the reference's store) gets sklearn's classes, which
+    `io.keras_interop.convert_estimator` then turns into the port's."""
 
     def find_class(self, module: str, name: str):
         import importlib
@@ -222,7 +249,10 @@ class _StoreUnpickler(pickle.Unpickler):
         if (module, name) in _NUMPY_GLOBALS | _PLAIN_GLOBALS:
             return super().find_class(module, name)
         if module.split(".")[0] == "sklearn":
-            raise NotImplementedError(f"an sklearn pickle ({module}.{name}): {_KERAS_INTEROP}")
+            from cell_image_analysis_tpu_torch.io.keras_interop import require_sklearn
+
+            require_sklearn(f"{module}.{name}")
+            return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f"refusing to load the global {module}.{name}: the store holds only "
             "numpy arrays and the fitted scaler, PCA, SVM and ensemble classes")
@@ -273,8 +303,11 @@ def save_training_artifacts(output_dir: str, model, best_state: dict, final_stat
 
 
 def _load_store_pickle(path: str):
+    """A store pickle; an sklearn estimator comes back as the port's class."""
+    from cell_image_analysis_tpu_torch.io.keras_interop import convert_estimator
+
     with open(path, "rb") as f:
-        return _StoreUnpickler(f).load()
+        return convert_estimator(_StoreUnpickler(f).load())
 
 
 def _is_keras_file(path: str) -> bool:
@@ -286,11 +319,14 @@ def _is_keras_file(path: str) -> bool:
 
 def load_cae(path: str):
     """`(CAE module on the CPU, numpy variables)` from a model file of the
-    store: a pickle of `{'magic', 'arch', 'variables'}` with numpy leaves."""
+    store: a pickle of `{'magic', 'arch', 'variables'}` with numpy leaves,
+    or a genuine Keras `.keras` / `.h5` model (`io.keras_interop.load_keras_cae`)."""
     from cell_image_analysis_tpu_torch.models.cae import CAE
 
     if _is_keras_file(path):
-        raise NotImplementedError(f"{path} is a Keras model file: {_KERAS_INTEROP}")
+        from cell_image_analysis_tpu_torch.io.keras_interop import load_keras_cae
+
+        return load_keras_cae(path)
     payload = _load_store_pickle(path)
     if not isinstance(payload, dict) or payload.get("magic") != _CAE_MAGIC:
         raise ValueError(f"{path}: not a {_CAE_MAGIC} artifact")

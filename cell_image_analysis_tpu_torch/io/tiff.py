@@ -1,7 +1,13 @@
-"""Self-contained TIFF codec (reader and writer), pure Python + numpy + zlib.
+"""Self-contained TIFF codec (reader and writer): Python + numpy + zlib, and
+C++ strip decoders.
 
-Counterpart of `cell_image_analysis_tpu/io/tiff.py`, without its optional
-C++ strip decoders: PackBits and LZW strips are decoded here in Python.
+Counterpart of `cell_image_analysis_tpu/io/tiff.py`.  PackBits and LZW
+strips are decoded in C++ (`native/tiff_codec.cpp`, built by g++ at first
+use into `build/host_native/` through `ops.cuda._build.host_library`; if
+it cannot be built, reading such a strip raises: there is no fallback).
+The Python decoders `_unpackbits` and `_lzw_decode` are their plain
+versions, byte for byte; a strip the C++ decoder finds malformed raises
+ValueError.
 
 Supported on read: little/big endian, baseline strips (no tiles), bits 8/16/
 32/64, sample formats uint/int/float, compression none/PackBits/LZW/Deflate,
@@ -13,11 +19,20 @@ readers.
 
 from __future__ import annotations
 
+import ctypes
+import os
 import struct
 import zlib
 from typing import BinaryIO
 
 import numpy as np
+
+CODEC_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "native", "tiff_codec.cpp")
+_CODEC = None
+# how far past the wanted size a decoder may write: the rest of the last LZW
+# table entry (at most 4096 bytes) or PackBits run (at most 128 bytes)
+_SLACK = {"lzw_decode": 4096, "packbits_decode": 128}
 
 _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 16: 8, 17: 8}
 _TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f", 12: "d", 16: "Q", 17: "q"}
@@ -121,13 +136,39 @@ def _lzw_decode(data: bytes, expected: int) -> bytes:
     return bytes(out)
 
 
+def codec() -> ctypes.CDLL:
+    """The loaded strip-decoder library (built on first use)."""
+    global _CODEC
+    if _CODEC is None:
+        from cell_image_analysis_tpu_torch.ops.cuda._build import host_library
+
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        sig = [u8, ctypes.c_long, u8, ctypes.c_long, ctypes.c_long]
+        _CODEC = host_library(CODEC_SOURCE, "libcia_tiff_codec",
+                              {"lzw_decode": sig, "packbits_decode": sig})
+    return _CODEC
+
+
+def native_decode(fn_name: str, data: bytes, expected: int) -> bytes:
+    """`_lzw_decode` / `_unpackbits` of `data` in C++ (`fn_name`
+    'lzw_decode' / 'packbits_decode'): the same bytes."""
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    src = np.frombuffer(data, dtype=np.uint8)
+    dst = np.empty(expected + _SLACK[fn_name], dtype=np.uint8)
+    n = getattr(codec(), fn_name)(src.ctypes.data_as(u8), len(src), dst.ctypes.data_as(u8),
+                                  len(dst), expected)
+    if n < 0:
+        raise ValueError(f"malformed {fn_name.split('_')[0].upper()} strip")
+    return dst[:n].tobytes()
+
+
 def _decompress(data: bytes, compression: int, expected: int) -> bytes:
     if compression == 1:
         return data
     if compression == 32773:
-        return _unpackbits(data, expected)
+        return native_decode("packbits_decode", data, expected)
     if compression == 5:
-        return _lzw_decode(data, expected)
+        return native_decode("lzw_decode", data, expected)
     if compression in (8, 32946):  # zlib/deflate
         return zlib.decompress(data)
     raise ValueError(f"unsupported TIFF compression {compression}")

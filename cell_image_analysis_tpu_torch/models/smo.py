@@ -22,17 +22,22 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 
 import numpy as np
 
-from cell_image_analysis_tpu_torch.ops.cuda._build import cached_build, load
+from cell_image_analysis_tpu_torch.ops.cuda._build import (
+    HOST_BUILD_DIR,
+    HOST_CXX_FLAGS,
+    cached_build,
+    host_cxx,
+    load,
+)
 
 _TAU = 1e-12
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "native", "svm_smo.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host_native")
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-ffp-contract=off"]
+BUILD_DIR = HOST_BUILD_DIR
+CXX_FLAGS = HOST_CXX_FLAGS
 
 
 def _start(K: np.ndarray, nu: float, max_iter: int | None):
@@ -109,17 +114,10 @@ def smo_one_class_np(
 _LIB = None
 
 
-def _cxx() -> str:
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None:
-        raise RuntimeError("the SMO solver needs a C++ compiler: g++ was not found")
-    return cxx
-
-
 def build() -> str:
     """Compile `native/svm_smo.cpp` unless the library for its hash exists;
     raises RuntimeError when there is no g++ or the compile fails."""
-    return cached_build([SOURCE], _cxx, CXX_FLAGS, BUILD_DIR, "libcia_smo")[0]
+    return cached_build([SOURCE], host_cxx, CXX_FLAGS, BUILD_DIR, "libcia_smo")[0]
 
 
 def library() -> ctypes.CDLL:

@@ -46,10 +46,13 @@ def _pad_to_multiple(x: torch.Tensor, m: int) -> torch.Tensor:
     return x
 
 
+@torch.no_grad()
 def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegConfig()):
     """seg_channels (B, H, W) raw -> (labels (B, H, W) int32, InstanceDetails).
 
-    `model` is a `models.unet.StarDistUNet` on the channels' device."""
+    `model` is a `models.unet.StarDistUNet` on the channels' device.  Runs
+    under `torch.no_grad`: the U-Net's parameters require grad, and its
+    convs take the autograd route only where grad mode is on."""
     B, h, w = seg_channels.shape
     x = normalize_percentile(seg_channels, pmin=cfg.norm_pmin, pmax=cfg.norm_pmax)
     x = _pad_to_multiple(x, 2 ** cfg.unet_depth)

@@ -7,7 +7,9 @@ One `nvcc` process a source, all started together, compiles each for
 rebuilds and an unchanged tree reuses the library.  The sources have a
 plain C interface (no PyTorch headers), which keeps the build to seconds.
 `cached_build` and `load` are the hash-keyed build and the ctypes load for
-any such library; the host SMO solver (`models/smo.py`) uses them with g++.
+any such library; `host_library` builds a host C++ source with g++
+through them into `build/host_native/` (the SMO solver, `models/smo.py`;
+the TIFF strip decoders, `io/tiff.py`).
 
 Every C entry point that launches takes its pointers and the CUDA stream
 as `void*`, launches on that stream, and returns `cudaGetLastError()`;
@@ -44,6 +46,9 @@ _SIGNATURES = {
     "cia_clahe_cells": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
     "cia_cc_label_components": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
+
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host_native")
+HOST_CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
 _LIB = None
 build_seconds: float | None = None  # wall time of the nvcc calls, None if reused
@@ -119,6 +124,22 @@ def load(path: str, signatures: dict, restype=ctypes.c_int) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def host_cxx() -> str:
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("the port's host C++ libraries (the SMO solver, the TIFF strip "
+                           "decoders) need a C++ compiler: g++ was not found")
+    return cxx
+
+
+def host_library(source: str, stem: str, signatures: dict, restype=ctypes.c_long) -> ctypes.CDLL:
+    """`source` built by g++ (`HOST_CXX_FLAGS`) into `HOST_BUILD_DIR` unless
+    the library for its hash exists, and loaded; RuntimeError when there is
+    no g++ or the compile fails."""
+    path, _ = cached_build([source], host_cxx, HOST_CXX_FLAGS, HOST_BUILD_DIR, stem)
+    return load(path, signatures, restype=restype)
 
 
 def build(verbose: bool = False) -> str:

@@ -14,6 +14,11 @@ the extra output is cut off.  Its loads are 16-byte copies, so Ci is
 zero-padded to a multiple of 8 (with U's rows), and U's Co to a multiple
 of the kernel's 32-channel block; U goes in the order the kernel's ring
 stages read it (`kernel_filter_layout`).
+
+Under grad mode the op has a gradient (`WinogradConv3x3Fn`): the data
+gradient is itself a SAME 3x3 correlation, of dy with the filter flipped
+and transposed, so it runs on the same kernel; the weight gradient is
+cuDNN's.  Without grad (screening, extraction) the call is the direct one.
 """
 
 from __future__ import annotations
@@ -101,7 +106,15 @@ def winograd_conv3x3_plain(x: torch.Tensor, W: torch.Tensor,
 def winograd_conv3x3(x: torch.Tensor, W: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """SAME 3x3 correlation + bias.  x (B, H, W, Ci) float32; W (3, 3, Ci,
-    Co) HWIO; bias (Co,) or None.  Returns (B, H, W, Co)."""
+    Co) HWIO; bias (Co,) or None.  Returns (B, H, W, Co).
+
+    Under grad mode, when x, W or bias requires grad, the call goes through
+    `WinogradConv3x3Fn`, whose forward and data gradient come back here with
+    grad off; otherwise it is the direct call: the kernel on CUDA, the
+    plain version on the CPU."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, W, bias)):
+        return WinogradConv3x3Fn.apply(x, W, bias)
     if x.device.type == "cpu":
         return winograd_conv3x3_plain(x, W, bias)
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
@@ -109,3 +122,48 @@ def winograd_conv3x3(x: torch.Tensor, W: torch.Tensor,
     h, w = x.shape[1:3]
     y = winograd_conv3x3_cuda(pad_input(x), *winograd_operands(W, bias))
     return y[:, :h, :w].contiguous() if (h % 2 or w % 2) else y
+
+
+def flip_transpose(W: torch.Tensor) -> torch.Tensor:
+    """W (3, 3, Ci, Co) -> W' (3, 3, Co, Ci), W'[a, b, o, i] = W[2 - a, 2 - b,
+    i, o]: the filter whose SAME correlation with dy is the data gradient."""
+    return W.flip(0, 1).transpose(2, 3)
+
+
+class WinogradConv3x3Fn(torch.autograd.Function):
+    """`winograd_conv3x3` with a gradient.  The forward and the data
+    gradient both run through `winograd_conv3x3` (on CUDA the kernel: a SAME
+    3x3 stride-1 correlation of dy with `flip_transpose(W)` is dx, odd sides
+    by the same pad-and-cut).  The weight gradient is cuDNN's
+    `conv2d_weight` (float32, TF32 off, deterministic algorithms): the JAX
+    package differentiates its U-Net's convs in XLA, outside any Pallas
+    kernel.  Only x and W are saved, not the output, which the U-Net's ReLU
+    overwrites in place."""
+
+    @staticmethod
+    def forward(ctx, x, W, bias):
+        ctx.save_for_backward(x, W)
+        y = winograd_conv3x3(x, W, bias)
+        # the plain version's NHWC output can be a view of F.conv2d's, and a
+        # custom Function's output that is a view cannot be changed in place
+        return y if y._base is None else y.clone()
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, W = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dW = db = None
+        if ctx.needs_input_grad[0]:
+            dx = winograd_conv3x3(dy, flip_transpose(W))
+        if ctx.needs_input_grad[1]:
+            # cuDNN's deterministic algorithms only: the heuristic's default
+            # for these shapes sums with atomics, and one run of training
+            # would not repeat another
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                            allow_tf32=False):
+                dW = torch.nn.grad.conv2d_weight(
+                    x.permute(0, 3, 1, 2), (W.shape[3], W.shape[2], 3, 3),
+                    dy.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
+        if ctx.needs_input_grad[2]:
+            db = dy.sum((0, 1, 2))
+        return dx, dW, db

@@ -179,22 +179,31 @@ def test_both_spellings_of_numpys_core_are_let_through(core):
     np.testing.assert_array_equal(got, arr)
 
 
-def test_keras_and_sklearn_files_name_keras_interop(store, tmp_path):
+def test_keras_and_sklearn_files_name_keras_interop(store, tmp_path, monkeypatch):
+    """Keras model files and sklearn pickles go to `io.keras_interop`; where
+    keras or sklearn is missing, the error names the package."""
+    import importlib.util
+    import sys
+
     path = _variant(store, tmp_path, True, True)
     with zipfile.ZipFile(os.path.join(path, C.ARTIFACT_BEST_AUTOENCODER), "w") as z:
         z.writestr("config.json", "{}")
-    with pytest.raises(NotImplementedError, match="io/keras_interop"):
+    monkeypatch.setitem(sys.modules, "keras", None)
+    with pytest.raises(ImportError, match="keras package"):
         artifacts.load_screening_artifacts(path)
     with open(os.path.join(path, C.ARTIFACT_BEST_AUTOENCODER), "wb") as f:
         f.write(b"\x89HDF\r\n\x1a\n" + b"\0" * 32)
-    with pytest.raises(NotImplementedError, match="io/keras_interop"):
+    with pytest.raises(ImportError, match="keras package"):
         artifacts.load_screening_artifacts(path)
 
     path2 = _variant(store, tmp_path / "b", True, True)
     # the opcodes of a pickled sklearn estimator: GLOBAL, EMPTY_TUPLE, NEWOBJ
     with open(os.path.join(path2, C.ARTIFACT_SCALER), "wb") as f:
         f.write(b"\x80\x02csklearn.preprocessing._data\nRobustScaler\n)\x81.")
-    with pytest.raises(NotImplementedError, match="io/keras_interop"):
+    real_find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "sklearn" else real_find_spec(name, *a))
+    with pytest.raises(ImportError, match=r"scikit-learn package \(sklearn\)"):
         artifacts.load_screening_artifacts(path2)
 
 

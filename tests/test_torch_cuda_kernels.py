@@ -47,6 +47,42 @@ def test_winograd_kernel_matches_plain(dev, b, h, w, ci, co):
     assert float((y - ref).abs().max()) / float(ref.abs().max()) < 1e-5
 
 
+@pytest.mark.parametrize("b,h,w,ci,co,x_grad", [
+    (2, 20, 36, 32, 64, True), (1, 33, 17, 5, 7, True), (2, 64, 64, 1, 32, False),
+    (1, 18, 22, 16, 1, True)])
+def test_winograd_autograd_launches_the_kernel_for_dx(dev, b, h, w, ci, co, x_grad):
+    """On the card the gradient is not lost: forward and dx are kernel
+    launches, and all three gradients match F.conv2d's within 1e-5."""
+    import torch.nn.functional as F
+
+    from cell_image_analysis_tpu_torch.ops.cuda import winograd as launcher
+    from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3
+
+    g = torch.Generator(device=dev).manual_seed(ci + co)
+    x0 = torch.randn((b, h, w, ci), generator=g, device=dev)
+    W0 = torch.randn((3, 3, ci, co), generator=g, device=dev) / (3 * ci ** 0.5)
+    b0 = torch.randn((co,), generator=g, device=dev)
+    dy = torch.randn((b, h, w, co), generator=g, device=dev)
+
+    def grads(fn):
+        x = x0.clone().requires_grad_(x_grad)
+        W, bias = W0.clone().requires_grad_(), b0.clone().requires_grad_()
+        fn(x, W, bias).backward(dy)
+        return [t.grad for t in (x, W, bias)]
+
+    before = launcher.LAUNCHES
+    got = grads(winograd_conv3x3)
+    assert launcher.LAUNCHES == before + 1 + x_grad
+    ref = grads(lambda x, W, bias: F.conv2d(
+        x.permute(0, 3, 1, 2), W.permute(3, 2, 0, 1).contiguous(), bias,
+        padding=1).permute(0, 2, 3, 1))
+    for a, r in zip(got, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert float((a - r).abs().max()) / float(r.abs().max()) < 1e-5
+
+
 def test_winograd_launcher_rejects_what_the_kernel_does_not_take(dev):
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
     from cell_image_analysis_tpu_torch.ops.winograd import winograd_operands

@@ -3,11 +3,13 @@
 - No file of `cell_image_analysis_tpu_torch/`, nor `chip_smoke.py`,
   `improved_detection_torch.py`, `improved_detection_v2_torch.py`,
   `CAE_improved_modeltrain_torch.py`, `scripts/profile_torch_port.py`,
-  `scripts/profile_torch_training.py`, `scripts/clahe_bands.py`,
-  `scripts/cc_split.py` or `scripts/cc_ablate.py`, imports `jax`,
-  `sklearn`, `pandas` or anything of the JAX package (an AST scan, one case
-  a file); the port's C++ sources include only standard headers and name
-  no file of the JAX package.
+  `scripts/profile_torch_training.py`, `scripts/profile_torch_unet_training.py`,
+  `scripts/make_unet_weights_torch.py`, `scripts/port_stardist_h5_torch.py`,
+  `scripts/clahe_bands.py`, `scripts/cc_split.py` or `scripts/cc_ablate.py`,
+  imports `jax`, `sklearn`, `pandas` or anything of the JAX package (an AST
+  scan, one case a file; `io/keras_interop.py` reads sklearn pickles, whose
+  classes the unpickler imports by name); the port's C++ sources include
+  only standard headers and name no file of the JAX package.
 - The port's `SegConfig` has the JAX defaults, field for field, and leaves
   out only the JAX package's TPU knobs; its other config classes have the
   JAX package's fields and defaults, `PipelineConfig` all but `sharding`;
@@ -37,6 +39,9 @@ _PORT_FILES = sorted(
     + ["chip_smoke.py", "improved_detection_torch.py", "improved_detection_v2_torch.py",
        "CAE_improved_modeltrain_torch.py", os.path.join("scripts", "profile_torch_port.py"),
        os.path.join("scripts", "profile_torch_training.py"),
+       os.path.join("scripts", "profile_torch_unet_training.py"),
+       os.path.join("scripts", "make_unet_weights_torch.py"),
+       os.path.join("scripts", "port_stardist_h5_torch.py"),
        os.path.join("scripts", "clahe_bands.py"), os.path.join("scripts", "cc_split.py"),
        os.path.join("scripts", "cc_ablate.py")])
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "pandas", "cell_image_analysis_tpu")
@@ -86,7 +91,10 @@ def test_the_scan_covers_the_port():
     for name in ("pipeline/training.py", "train/trainer.py", "train/augment.py",
                  "train/checkpoint.py", "models/smo.py", "ops/oracle/regionprops_np.py"):
         assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
-    assert _CPP_FILES == ["cell_image_analysis_tpu_torch/native/svm_smo.cpp"]
+    for name in ("train/unet_trainer.py", "io/keras_interop.py", "utils/port_weights.py"):
+        assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
+    assert _CPP_FILES == ["cell_image_analysis_tpu_torch/native/svm_smo.cpp",
+                          "cell_image_analysis_tpu_torch/native/tiff_codec.cpp"]
     assert "cell_image_analysis_tpu_torch/utils/synthetic.py" in _PORT_FILES
     tree = ast.parse("import jax.numpy as jnp\nfrom cell_image_analysis_tpu.config import X\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "cell_image_analysis_tpu.config"]

@@ -5,8 +5,10 @@
 - compressed files written by PIL (PackBits, LZW, Deflate) and TIFFs built
   by hand in this file (big endian, several strips, the horizontal
   predictor, separate planes, two pages, Deflate) decode to the same arrays
-  through the port's pure-Python decoders and the JAX package's reader
-  (which uses its C++ strip decoders where they are built);
+  through the port's reader (its C++ strip decoders for PackBits and LZW,
+  held against its Python decoders in `test_torch_tiff_native.py`) and the
+  JAX package's reader (which uses its C++ strip decoders where they are
+  built);
 - `make_dataset` writes byte-identical folders.
 """
 
