@@ -8,6 +8,9 @@ Counterpart of `cell_image_analysis_tpu/cli.py`'s `train` and `screen`
 commands, with the constants as flags whose defaults are the reference
 values.  They run on the card; `--device cpu` runs them on the CPU.
 Without a GPU and without `--device cpu` they exit with an error (code 2).
+`--mesh N` shards them over the first N GPUs (`parallel.mesh.make_mesh`),
+or, with `--device cpu` or `--device cuda:K`, over N shards on that one
+device (`virtual_mesh`).
 `train` exits 1 when fewer than `--min-cells` cells pass QC.  `bench` is
 not ported yet.
 """
@@ -49,6 +52,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--unet-weights", default=None, help="path to U-Net weights artifact")
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' runs on the CPU)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard over the first N GPUs, or over N shards of --device "
+                        "(0 = one device)")
     p.add_argument("--border-margin", type=int, default=10)
     p.add_argument("--min-area", type=int, default=200)
     p.add_argument("--max-area", type=int, default=8000)
@@ -120,11 +126,19 @@ def parse_samples(parser: argparse.ArgumentParser, args) -> dict:
 
 
 def _device(parser: argparse.ArgumentParser, args):
+    """(device, mesh) of `--device` and `--mesh`; no GPU without `--device
+    cpu` exits 2."""
     from cell_image_analysis_tpu_torch.io.artifacts import resolve_device
+    from cell_image_analysis_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
 
     try:
-        return resolve_device(args.device)
-    except RuntimeError as e:
+        device = resolve_device(args.device)
+        if not args.mesh:
+            return device, None
+        if args.device is None:
+            return None, make_mesh(args.mesh)
+        return None, virtual_mesh(device, args.mesh)
+    except (RuntimeError, ValueError) as e:
         parser.exit(2, f"{parser.prog}: error: {e} (--device cpu)\n")
 
 
@@ -134,10 +148,11 @@ def run_train(parser: argparse.ArgumentParser, args, unet_variables) -> int:
     from cell_image_analysis_tpu_torch.config import PipelineConfig
     from cell_image_analysis_tpu_torch.pipeline.training import ImprovedAnomalyDetectionTraining
 
-    device = _device(parser, args)
+    device, mesh = _device(parser, args)
     config = _apply_overrides(PipelineConfig(), args)
     out = args.output or f"./output/{datetime.now().strftime('%Y%m%d_%H%M')}"
-    trainer = ImprovedAnomalyDetectionTraining(out, config, unet_variables, device=device)
+    trainer = ImprovedAnomalyDetectionTraining(out, config, unet_variables, device=device,
+                                               mesh=mesh)
     return 0 if trainer.run(args.input_folder, figures=not args.no_figures) else 1
 
 
@@ -148,11 +163,12 @@ def run_screen(parser: argparse.ArgumentParser, args, unet_variables, default_su
     from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
 
     samples = parse_samples(parser, args)
-    device = _device(parser, args)
+    device, mesh = _device(parser, args)
     config = _apply_overrides(PipelineConfig(), args)
     stamp = datetime.now().strftime("%Y%m%d_%H%M")
     out = args.output or f"./results/{stamp}_{default_suffix}"
-    screener = ProductionMutantScreening(args.models, config, unet_variables, device=device)
+    screener = ProductionMutantScreening(args.models, config, unet_variables, device=device,
+                                         mesh=mesh)
     results, _ = screener.screen_mutant_samples(samples, out, figures=not args.no_figures)
     return results, out
 

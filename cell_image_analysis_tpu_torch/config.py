@@ -48,7 +48,7 @@ class ExtractConfig:
     cell_capacity: int = 512         # max QC-passing cells kept per frame
     crop_capacity: int = 192         # max bbox side; area <= 8000 & ecc <= 0.95 bounds this
     out_size: int = 64               # resize target (64, 64)
-    tile_min_side: int = 2048        # the spatial tiler's threshold (not ported yet)
+    tile_min_side: int = 2048        # with a mesh, frames at least this on both sides are tiled
 
 
 @dataclass(frozen=True)

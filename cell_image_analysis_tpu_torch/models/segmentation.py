@@ -25,6 +25,7 @@ All of them take batches (B, H, W).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -158,6 +159,24 @@ class StarDistBackend:
             model.load_state_dict(unet_state_from_jax(variables))
             model = model.to(resolve_device(device)).eval()
         self.model = model
+        self._replicas: dict = {}
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def to(self, device) -> StarDistBackend:
+        """This backend with a copy of its U-Net on `device` (one copy a
+        device, kept for later calls): a shard's segment_fn on a mesh
+        (`parallel.sharding.replicate`)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if device not in self._replicas:
+            self._replicas[device] = StarDistBackend(
+                None, self.cfg, runs_props=self.runs_props,
+                model=copy.deepcopy(self.model).to(device))
+        return self._replicas[device]
 
     def exact_twin(self) -> StarDistBackend:
         """The overflow re-run target, on the same U-Net: scatter

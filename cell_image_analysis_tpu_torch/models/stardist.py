@@ -47,14 +47,19 @@ def _pad_to_multiple(x: torch.Tensor, m: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegConfig()):
+def predict_instances(seg_channels: torch.Tensor, model, cfg: SegConfig = SegConfig(),
+                      normalize: bool = True):
     """seg_channels (B, H, W) raw -> (labels (B, H, W) int32, InstanceDetails).
 
-    `model` is a `models.unet.StarDistUNet` on the channels' device.  Runs
+    `model` is a `models.unet.StarDistUNet` on the channels' device.
+    `normalize=False` takes channels that are normalized already (the plate
+    tiler normalizes the whole frame before it cuts the tiles).  Runs
     under `torch.no_grad`: the U-Net's parameters require grad, and its
     convs take the autograd route only where grad mode is on."""
     B, h, w = seg_channels.shape
-    x = normalize_percentile(seg_channels, pmin=cfg.norm_pmin, pmax=cfg.norm_pmax)
+    x = seg_channels.float()
+    if normalize:
+        x = normalize_percentile(x, pmin=cfg.norm_pmin, pmax=cfg.norm_pmax)
     x = _pad_to_multiple(x, 2 ** cfg.unet_depth)
     gy, gx = cfg.grid
     K = cfg.max_candidates

@@ -60,6 +60,31 @@ class Candidates(NamedTuple):
     n_valid: torch.Tensor         # (B,) int32
 
 
+def gather_crops(green: torch.Tensor, minr: torch.Tensor, minc: torch.Tensor, ch: torch.Tensor,
+                 cw: torch.Tensor, crop_capacity: int):
+    """(crops (B, C, cap, cap), mean (B, C), std (B, C)): the crops of the
+    float32 frames green (B, H, W) at the bbox corners (minr, minc) (B, C),
+    read from the zero-padded frame (JAX's `dynamic_slice`, whose starts
+    clamp), and the intensity mean and standard deviation over each
+    crop's [:ch, :cw] rectangle."""
+    B, h, w = green.shape
+    padded = torch.nn.functional.pad(green, (0, crop_capacity, 0, crop_capacity))
+    ar = torch.arange(crop_capacity, device=green.device)
+    rows = torch.clamp(minr, 0, h).long()[..., None] + ar            # (B, C, cap)
+    cols = torch.clamp(minc, 0, w).long()[..., None] + ar
+    flat = rows[..., :, None] * (w + crop_capacity) + cols[..., None, :]
+    crops = torch.gather(padded.reshape(B, 1, -1).expand(B, flat.shape[1], -1), 2,
+                         flat.reshape(B, flat.shape[1], -1)).reshape(flat.shape)
+
+    rect = (ar[:, None] < ch[..., None, None]) & (ar[None, :] < cw[..., None, None])
+    area_rect = torch.clamp((ch * cw).float(), min=1.0)
+    zero = torch.zeros((), device=green.device)
+    mean = torch.where(rect, crops, zero).sum(dim=(2, 3)) / area_rect
+    centered = torch.where(rect, crops - mean[..., None, None], zero)
+    std = torch.sqrt(torch.clamp((centered * centered).sum(dim=(2, 3)) / area_rect, min=0.0))
+    return crops, mean, std
+
+
 def _candidates_from_props(props, green: torch.Tensor, label_capacity: int,
                            cell_capacity: int, crop_capacity: int, border_margin: int,
                            min_area: int, max_area: int, max_eccentricity: float,
@@ -80,21 +105,7 @@ def _candidates_from_props(props, green: torch.Tensor, label_capacity: int,
     ch = torch.clamp(ch, 1, crop_capacity)
     cw = torch.clamp(cw, 1, crop_capacity)
 
-    # crop gather from the zero-padded frame (dynamic_slice clamps starts)
-    padded = torch.nn.functional.pad(green, (0, crop_capacity, 0, crop_capacity))
-    ar = torch.arange(crop_capacity, device=dev)
-    rows = torch.clamp(minr, 0, h).long()[..., None] + ar            # (B, C, cap)
-    cols = torch.clamp(minc, 0, w).long()[..., None] + ar
-    flat = rows[..., :, None] * (w + crop_capacity) + cols[..., None, :]
-    crops = torch.gather(padded.reshape(B, 1, -1).expand(B, flat.shape[1], -1), 2,
-                         flat.reshape(B, flat.shape[1], -1)).reshape(flat.shape)
-
-    rect = (ar[:, None] < ch[..., None, None]) & (ar[None, :] < cw[..., None, None])
-    area_rect = torch.clamp((ch * cw).float(), min=1.0)
-    zero = torch.zeros((), device=dev)
-    mean = torch.where(rect, crops, zero).sum(dim=(2, 3)) / area_rect
-    centered = torch.where(rect, crops - mean[..., None, None], zero)
-    std = torch.sqrt(torch.clamp((centered * centered).sum(dim=(2, 3)) / area_rect, min=0.0))
+    crops, mean, std = gather_crops(green, minr, minc, ch, cw, crop_capacity)
     valid = cand & (mean >= min_mean_intensity) & (std >= min_std_intensity)
 
     # repack the valid cells to the front (stable: ascending label order)

@@ -105,6 +105,10 @@ def score_cells(model, params: ScoringParams, X: torch.Tensor, min_votes: int = 
 
 
 _FUSED_D = 9 + 16 + 8 + 3
+_SCORE_KEYS = ("reconstruction_mse", "reconstruction_mae", "conservative_predictions",
+               "moderate_predictions", "conservative_scores", "moderate_scores",
+               "ensemble_predictions", "fft_predictions", "fft_scores")
+_RATES = ("conservative", "moderate", "ensemble", "fft")
 
 
 def _score_rows(s: CellScores) -> torch.Tensor:
@@ -116,14 +120,30 @@ def _score_rows(s: CellScores) -> torch.Tensor:
 
 def score_frames_fused(model, params: ScoringParams, segs: torch.Tensor, greens: torch.Tensor,
                        segment_fn, chunk: int = 256, caps: tuple = (64, 96), min_votes: int = 2,
-                       out_size: int = 64, clip_limit: float = 0.02,
+                       out_size: int = 64, clip_limit: float = 0.02, mesh=None,
                        fallback_segment_fn=None, **candidate_kwargs) -> tuple:
-    """Screen a (B, H, W) frame batch on one device; returns (scores dict,
-    stats dict) of numpy arrays, as JAX `score_frames_fused_wait`."""
+    """Screen a (B, H, W) frame batch; returns (scores dict, stats dict) of
+    numpy arrays, as JAX `score_frames_fused_wait`.  With a `mesh` the
+    frames are split over its shards (see `score_frames_fused_start`)."""
     return score_frames_fused_wait(score_frames_fused_start(
         model, params, segs, greens, segment_fn, chunk=chunk, caps=caps, min_votes=min_votes,
-        out_size=out_size, clip_limit=clip_limit, fallback_segment_fn=fallback_segment_fn,
-        **candidate_kwargs))
+        out_size=out_size, clip_limit=clip_limit, mesh=mesh,
+        fallback_segment_fn=fallback_segment_fn, **candidate_kwargs))
+
+
+def score_frames(model, params: ScoringParams, segs: torch.Tensor, greens: torch.Tensor,
+                 segment_fn, chunk: int = 128, small_cap: int = 96, min_votes: int = 2,
+                 out_size: int = 64, clip_limit: float = 0.02, mesh=None,
+                 fallback_segment_fn=None, **candidate_kwargs) -> tuple:
+    """The chunked form of `score_frames_fused` (JAX `score_frames`): two
+    size buckets, cells with both sides <= `small_cap` and the rest at the
+    full crop capacity, resized and scored `chunk` cells a call, returned
+    when done.  The buckets only pad the layout, so it gives the fused
+    path's results; with a `mesh` the frames are split over its shards."""
+    return score_frames_fused(model, params, segs, greens, segment_fn, chunk=chunk,
+                              caps=(small_cap,), min_votes=min_votes, out_size=out_size,
+                              clip_limit=clip_limit, mesh=mesh,
+                              fallback_segment_fn=fallback_segment_fn, **candidate_kwargs)
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -140,7 +160,7 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
                              greens: torch.Tensor, segment_fn, chunk: int = 256,
                              caps: tuple = (64, 96), min_votes: int = 2, out_size: int = 64,
-                             clip_limit: float = 0.02, fallback_segment_fn=None,
+                             clip_limit: float = 0.02, mesh=None, fallback_segment_fn=None,
                              **candidate_kwargs) -> dict:
     """The dispatch half of `score_frames_fused`: enqueues segmentation and
     stage A of the batch, begins the copies of the small per-cell arrays
@@ -149,7 +169,29 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
     pending handle without waiting for them.  `score_frames_fused_wait`
     takes the handle.  A caller with many batches starts batch k+1 before
     it waits on batch k, so that the host's part of k overlaps the device's
-    stage A of k+1."""
+    stage A of k+1.
+
+    With a `mesh` (`parallel.mesh`) the batch is padded with zero frames to
+    a multiple of the mesh (they give no cell: the intensity gates fail on
+    zeros), split into one part a shard, and each part goes through this
+    single-device half on its shard's device, with the replicas of
+    `model`, `params` and `segment_fn` there (`parallel.sharding.replicate`;
+    pass them replicated to keep the copies): every shard runs the whole
+    fused body on its own frames, with no exchange between shards."""
+    common = dict(chunk=chunk, caps=caps, min_votes=min_votes, out_size=out_size,
+                  clip_limit=clip_limit, candidate_kwargs=candidate_kwargs)
+    if mesh is not None:
+        from cell_image_analysis_tpu_torch.parallel.sharding import replicate, shard_batch
+
+        models, paramss, fns = (replicate(mesh, x) for x in (model, params, segment_fn))
+        seg_parts, green_parts = shard_batch(mesh, segs), shard_batch(mesh, greens)
+        shards = [score_frames_fused_start(m, p, s, g, fn, chunk=chunk, caps=caps,
+                                           min_votes=min_votes, out_size=out_size,
+                                           clip_limit=clip_limit, **candidate_kwargs)
+                  for m, p, s, g, fn in zip(models, paramss, seg_parts, green_parts, fns)]
+        return dict(common, model=model, params=params, segs0=segs, greens0=greens, mesh=mesh,
+                    fallback_segment_fn=fallback_segment_fn, shards=shards,
+                    n_frames=int(segs.shape[0]))
     cand, ovf, _ = stage_a(segment_fn, segs, greens, candidate_kwargs)
     B, ccap, full_cap = cand.crops.shape[:3]
     flat = [t.reshape(-1) for t in (cand.heights, cand.widths, cand.valid, cand.label_ids,
@@ -162,82 +204,118 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(segs.device))
     return dict(
-        model=model, params=params, segs0=segs, greens0=greens, chunk=chunk, caps=caps,
-        min_votes=min_votes, out_size=out_size, clip_limit=clip_limit,
-        fallback_segment_fn=fallback_segment_fn, candidate_kwargs=candidate_kwargs,
+        common, model=model, params=params, segs0=segs, greens0=greens, mesh=None,
+        fallback_segment_fn=fallback_segment_fn,
         crops=cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous(),
         heights=flat[0].int(), widths=flat[1].int(), ints=ints, floats=floats, event=event,
         shape=(B, ccap, full_cap))
+
+
+def _overflowed(pend: dict) -> bool:
+    """Waits for the handle's host copies; True if a capacity flag fired in
+    any frame of any shard."""
+    shards = pend.get("shards") or [pend]
+    for sh in shards:
+        if sh["event"] is not None:
+            sh["event"].synchronize()
+    return any(bool(sh["ints"][:sh["shape"][0]].any()) for sh in shards)
+
+
+def _bucket_rows(pend: dict) -> torch.Tensor:
+    """Launches the size-bucket loop (CLAHE, resize, `score_cells`) of one
+    device's handle; returns its (N, D) score rows on the device."""
+    B, ccap, _ = pend["shape"]
+    N = B * ccap
+    heights_h, widths_h, valid_h = (pend["ints"][B + k * N:B + (k + 1) * N] for k in range(3))
+    crops, heights, widths = pend["crops"], pend["heights"], pend["widths"]
+    rows = torch.zeros((N, _FUSED_D), dtype=torch.float32, device=crops.device)
+    for ids, cells in preprocess_buckets(crops, heights, widths, heights_h, widths_h,
+                                         valid_h.bool(), caps=pend["caps"], chunk=pend["chunk"],
+                                         out_size=pend["out_size"],
+                                         clip_limit=pend["clip_limit"]):
+        rows[ids] = _score_rows(score_cells(pend["model"], pend["params"], cells[..., None],
+                                            min_votes=pend["min_votes"]))
+    return rows
+
+
+def _decode(pend: dict, rows: torch.Tensor) -> tuple:
+    """Fetches one device's valid rows (the one fetch) and decodes them with
+    the host statistics into (scores dict, stats dict)."""
+    B, ccap, _ = pend["shape"]
+    N = B * ccap
+    ints, floats = pend["ints"], pend["floats"]
+    valid_h, label_ids, area = (ints[B + k * N:B + (k + 1) * N] for k in range(2, 5))
+    pool = torch.nonzero(valid_h.bool()).flatten()
+    stats_h = dict(label_ids=label_ids, area=area, eccentricity=floats[:N],
+                   mean_intensity=floats[N:2 * N], std_intensity=floats[2 * N:])
+    stats = {k: v[pool].numpy() for k, v in stats_h.items()}
+    stats["frame_index"] = (pool // ccap).numpy()
+    packed = rows[pool.to(rows.device, non_blocking=True)].cpu().numpy()   # the one fetch
+    if packed.shape[0] == 0:
+        return {}, stats
+    return _scores_dict(packed), stats
+
+
+def _scores_dict(packed: np.ndarray) -> dict:
+    out = {k: packed[:, i] for i, k in enumerate(_SCORE_KEYS)}
+    for k in _SCORE_KEYS:
+        if k.endswith("_predictions"):
+            out[k] = out[k].astype(np.int32)
+    out["fft_features"] = packed[:, len(_SCORE_KEYS):]
+    return _with_rates(out)
+
+
+def _with_rates(out: dict) -> dict:
+    for name in _RATES:
+        out[f"{name}_anomaly_rate"] = float(np.mean(out[f"{name}_predictions"] == -1))
+    return out
+
+
+def _merge_shards(parts: list, b_local: int, n_frames: int) -> tuple:
+    """The shards' (scores, stats) in shard order, frame indices offset by
+    s * b_local; the padding frames' rows (none in practice) are dropped
+    and the rates are taken over the merged rows."""
+    stats = {k: np.concatenate([st[k] for _, st in parts]) for k in parts[0][1]}
+    stats["frame_index"] = np.concatenate([st["frame_index"] + s * b_local
+                                           for s, (_, st) in enumerate(parts)])
+    keep = stats["frame_index"] < n_frames
+    stats = {k: v[keep] for k, v in stats.items()}
+    scored = [sc for sc, _ in parts if sc]
+    if not keep.any():
+        return {}, stats
+    return _with_rates({k: np.concatenate([sc[k] for sc in scored])[keep]
+                        for k in (*_SCORE_KEYS, "fft_features")}), stats
 
 
 @torch.inference_mode()
 def score_frames_fused_wait(pend: dict) -> tuple:
     """The fetch half of `score_frames_fused`: waits for the handle's host
     copies, takes the overflow decision (the fallback re-runs the batch
-    synchronously), runs the size-bucket loop (CLAHE, resize, `score_cells`)
-    and fetches the scored rows once.  Returns (scores dict, stats dict) of
-    numpy arrays, as JAX `score_frames_fused_wait`."""
-    if pend["event"] is not None:
-        pend["event"].synchronize()
-    B, ccap, full_cap = pend["shape"]
-    N = B * ccap
-    ints, floats = pend["ints"], pend["floats"]
-    ovf = ints[:B]
-    heights_h, widths_h, valid_h, label_ids, area = (ints[B + k * N:B + (k + 1) * N]
-                                                     for k in range(5))
-    valid_h = valid_h.bool()
-    if bool(ovf.any()):
+    synchronously, on the mesh where there is one), runs the size-bucket
+    loop (CLAHE, resize, `score_cells`) and fetches the scored rows once.
+    Returns (scores dict, stats dict) of numpy arrays, as JAX
+    `score_frames_fused_wait`.  On a mesh the flags of every shard are
+    read first, then every shard's bucket loop is launched, then each
+    shard's rows are fetched, and the shards merge with frame offsets."""
+    if _overflowed(pend):
         if pend["fallback_segment_fn"] is not None:
             return score_frames_fused(
                 pend["model"], pend["params"], pend["segs0"], pend["greens0"],
                 pend["fallback_segment_fn"], chunk=pend["chunk"], caps=pend["caps"],
                 min_votes=pend["min_votes"], out_size=pend["out_size"],
-                clip_limit=pend["clip_limit"], **pend["candidate_kwargs"])
+                clip_limit=pend["clip_limit"], mesh=pend["mesh"], **pend["candidate_kwargs"])
         warnings.warn(
             "score_frames_fused: capacity overflow with no fallback_segment_fn — "
             "candidate extraction may have dropped or corrupted cells; pass "
             "fallback_segment_fn or raise the capacity (rcap; for the StarDist "
             "backend also max_candidates, raster_m_cap and nms_max_pairs)",
             RuntimeWarning, stacklevel=2)
-
-    crops, heights, widths = pend["crops"], pend["heights"], pend["widths"]
-    dev = crops.device
-    rows = torch.zeros((N, _FUSED_D), dtype=torch.float32, device=dev)
-    for ids, cells in preprocess_buckets(crops, heights, widths, heights_h, widths_h, valid_h,
-                                         caps=pend["caps"], chunk=pend["chunk"],
-                                         out_size=pend["out_size"],
-                                         clip_limit=pend["clip_limit"]):
-        rows[ids] = _score_rows(score_cells(pend["model"], pend["params"], cells[..., None],
-                                            min_votes=pend["min_votes"]))
-
-    pool = torch.nonzero(valid_h).flatten()
-    stats_h = dict(label_ids=label_ids, area=area, eccentricity=floats[:N],
-                   mean_intensity=floats[N:2 * N], std_intensity=floats[2 * N:])
-    stats = {k: v[pool].numpy() for k, v in stats_h.items()}
-    stats["frame_index"] = (pool // ccap).numpy()
-    packed = rows[pool.to(dev, non_blocking=True)].cpu().numpy()   # the one fetch
-    if packed.shape[0] == 0:
-        return {}, stats
-    out = {
-        "reconstruction_mse": packed[:, 0],
-        "reconstruction_mae": packed[:, 1],
-        "conservative_predictions": packed[:, 2].astype(np.int32),
-        "moderate_predictions": packed[:, 3].astype(np.int32),
-        "conservative_scores": packed[:, 4],
-        "moderate_scores": packed[:, 5],
-        "ensemble_predictions": packed[:, 6].astype(np.int32),
-        "fft_predictions": packed[:, 7].astype(np.int32),
-        "fft_scores": packed[:, 8],
-        "fft_features": packed[:, 9:],
-    }
-    for name in ("conservative", "moderate", "ensemble", "fft"):
-        out[f"{name}_anomaly_rate"] = float(np.mean(out[f"{name}_predictions"] == -1))
-    return out, stats
-
-
-_SCORE_KEYS = ("reconstruction_mse", "reconstruction_mae", "conservative_predictions",
-               "moderate_predictions", "conservative_scores", "moderate_scores",
-               "ensemble_predictions", "fft_predictions", "fft_scores")
+    shards = pend.get("shards")
+    if shards is None:
+        return _decode(pend, _bucket_rows(pend))
+    rows = [_bucket_rows(sh) for sh in shards]
+    parts = [_decode(sh, r) for sh, r in zip(shards, rows)]
+    return _merge_shards(parts, shards[0]["shape"][0], pend["n_frames"])
 
 
 def compute_anomaly_scores(model, params: ScoringParams, cells, valid=None,
@@ -245,18 +323,27 @@ def compute_anomaly_scores(model, params: ScoringParams, cells, valid=None,
     """`score_cells` on (n, 64, 64) or (n, 64, 64, 1) host cells, on the
     device of `params`, as a dict of numpy arrays with the reference's
     schema plus the ensemble and FFT entries.  `valid` optionally masks
-    padding; rates are over the valid entries only."""
-    X = torch.as_tensor(np.asarray(cells, dtype=np.float32), device=params.pca_mean.device)
-    if X.dim() == 3:
-        X = X[..., None]
-    if X.shape[0] == 0:
+    padding; rates are over the valid entries only.
+
+    `cells` may be a sharded chunk instead, one tensor a shard
+    (`parallel.sharding.shard_batch`), with `model` and `params` replicated
+    over the same mesh (`parallel.sharding.replicate`): every shard is
+    scored on its device before any is fetched, and the rows come back in
+    shard order."""
+    if not isinstance(cells, (list, tuple)):
+        cells, model, params = [cells], [model], [params]
+    X = [torch.as_tensor(np.asarray(c, dtype=np.float32) if not isinstance(c, torch.Tensor)
+                         else c, device=p.pca_mean.device).float() for c, p in zip(cells, params)]
+    X = [x[..., None] if x.dim() == 3 else x for x in X]
+    if sum(x.shape[0] for x in X) == 0:
         return {}
-    s = score_cells(model, params, X, min_votes=min_votes)
-    v = np.ones(X.shape[0], bool) if valid is None else np.asarray(valid, bool)
+    parts = [score_cells(m, p, x, min_votes=min_votes) for m, p, x in zip(model, params, X)]
+    host = {k: np.concatenate([getattr(s, k).cpu().numpy() for s in parts])
+            for k in (*_SCORE_KEYS, "fft")}
+    v = np.ones(len(host["fft"]), bool) if valid is None else np.asarray(valid, bool)
     n = max(int(v.sum()), 1)
-    out = {k: getattr(s, k).cpu().numpy()[v] for k in _SCORE_KEYS}
-    out["fft_features"] = s.fft.cpu().numpy()[v]
-    for name in ("conservative", "moderate", "ensemble", "fft"):
-        pred = getattr(s, f"{name}_predictions").cpu().numpy()
-        out[f"{name}_anomaly_rate"] = float(np.sum((pred == -1) & v) / n)
+    out = {k: host[k][v] for k in _SCORE_KEYS}
+    out["fft_features"] = host["fft"][v]
+    for name in _RATES:
+        out[f"{name}_anomaly_rate"] = float(np.sum((host[f"{name}_predictions"] == -1) & v) / n)
     return out

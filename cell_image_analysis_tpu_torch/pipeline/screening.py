@@ -1,14 +1,18 @@
-"""Screening entry point: `ProductionMutantScreening`, on one device.
+"""Screening entry point: `ProductionMutantScreening`.
 
-Counterpart of `cell_image_analysis_tpu/pipeline/screening.py` without a
-mesh: load the artifact store, stream each sample folder's TIFFs into
-same-shape batches, run every batch through the fused
-segmentation -> extraction -> scoring path (`pipeline.scoring`) with one
-batch in flight, and write the CSVs, the figures and the report.
+Counterpart of `cell_image_analysis_tpu/pipeline/screening.py`: load the
+artifact store, stream each sample folder's TIFFs into same-shape batches,
+run every batch through the fused segmentation -> extraction -> scoring
+path (`pipeline.scoring`) with one batch in flight, and write the CSVs,
+the figures and the report.
 
-The spatial tiler's route (`tiled_route` / `score_tiled` in the JAX
-module) needs a mesh and is not ported; without a mesh the JAX screener
-never takes it.
+With a mesh (`parallel.mesh`) the scoring parameters, the CAE and the
+segmentation backends are replicated over its devices, each fused batch is
+split over the shards, and a frame whose sides are both at least
+`ExtractConfig.tile_min_side` goes through the plate tiler instead
+(`tiled_route` / `score_tiled`: `parallel.tiling`, its rows split over the
+shards with halos, capacities scaled with each tile's area).  Without a
+mesh the screener runs on one device and never takes the tiled route.
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ from cell_image_analysis_tpu_torch.models.segmentation import (
     select_backend,
 )
 from cell_image_analysis_tpu_torch.ops.extract import extract_cells_chunked
+from cell_image_analysis_tpu_torch.parallel.mesh import AXIS, canonical_device
+from cell_image_analysis_tpu_torch.parallel.sharding import pad_to_multiple, replicate, shard_batch
+from cell_image_analysis_tpu_torch.parallel.tiling import (
+    tiled_extract_cells,
+    tiled_extract_cells_stardist,
+)
 from cell_image_analysis_tpu_torch.pipeline import reports
 from cell_image_analysis_tpu_torch.pipeline.scoring import (
     compute_anomaly_scores,
@@ -45,13 +55,20 @@ class ProductionMutantScreening:
     `io.artifacts.load_unet_variables` returns) selects the StarDist
     backend; without them, or with `config.seg.backend == "threshold"`, the
     threshold backend runs.  Everything lives on `device` (default: the
-    card; without one and without `device="cpu"` this raises)."""
+    card; without one and without `device="cpu"` this raises).  With a
+    `mesh` the home device is the mesh's first, which a `device` passed
+    beside it must name."""
 
     def __init__(self, model_dir: str, config: PipelineConfig = PipelineConfig(),
-                 unet_variables=None, device=None):
+                 unet_variables=None, device=None, mesh=None):
         self.model_dir = model_dir
         self.config = config
         self.unet_variables = unet_variables
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and canonical_device(device) != mesh.home:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.home}")
+            device = mesh.home
         self.device = artifacts.resolve_device(device)
         self.timer = StageTimer()
         self.meter = ThroughputMeter()
@@ -67,6 +84,10 @@ class ProductionMutantScreening:
         # (the defaults are tuned for frames up to 1024^2), keyed by shape
         self._plate_backends: dict = {}
         self.load_trained_models()
+        # the tiler's U-Net, one copy a device of the mesh (the segmentation
+        # backends keep their own copies: `StarDistBackend.to`)
+        self._unets = (replicate(mesh, self._unet) if mesh is not None and self._unet is not None
+                       else self._unet)
 
     def _capacity_scale(self, h: int, w: int) -> int:
         """Frame-area multiple of the 1024^2 tuning baseline (>= 1)."""
@@ -98,6 +119,9 @@ class ProductionMutantScreening:
         self.model, self.scoring_params = artifacts.build_scoring_params(
             model, self.variables, self.scaler, self.pca, self.detectors, self.ensemble,
             device=self.device)
+        # what scoring takes: (CAE, ScoringParams), on a mesh one copy a device
+        self._scoring = (self.model, self.scoring_params) if self.mesh is None else (
+            replicate(self.mesh, self.model), replicate(self.mesh, self.scoring_params))
         print("All models loaded successfully!")
 
     def _qc_kwargs(self) -> dict:
@@ -135,16 +159,21 @@ class ProductionMutantScreening:
         return cells, stats
 
     def compute_anomaly_scores(self, cell_images: np.ndarray) -> dict:
-        """Scores of host cells, `_SCORE_CHUNK` a call."""
+        """Scores of host cells, `_SCORE_CHUNK` a call; on a mesh each
+        chunk is padded to a multiple of the mesh and split over the
+        shards."""
         n = len(cell_images)
         if n == 0:
             return {}
-        chunks = [
-            compute_anomaly_scores(self.model, self.scoring_params,
-                                   np.asarray(cell_images[start:start + _SCORE_CHUNK], np.float32),
-                                   min_votes=self.config.ensemble.min_votes)
-            for start in range(0, n, _SCORE_CHUNK)
-        ]
+        chunks = []
+        for start in range(0, n, _SCORE_CHUNK):
+            block = np.asarray(cell_images[start:start + _SCORE_CHUNK], np.float32)
+            valid = None
+            if self.mesh is not None:
+                padded, valid = pad_to_multiple(block, self.mesh.shape[AXIS])
+                block = shard_batch(self.mesh, padded)
+            chunks.append(compute_anomaly_scores(*self._scoring, block, valid=valid,
+                                                 min_votes=self.config.ensemble.min_votes))
         out = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in (
             "reconstruction_mse", "reconstruction_mae", "conservative_predictions",
             "moderate_predictions", "conservative_scores", "moderate_scores",
@@ -183,6 +212,80 @@ class ProductionMutantScreening:
         screener's device (`io.ingest.frames_to_device`)."""
         return frames_to_device(channels, self.device)
 
+    def _stardist(self) -> bool:
+        return self._segment is not None
+
+    def tiled_route(self, shape: tuple) -> bool:
+        """A frame takes the plate tiler when a mesh is attached, both its
+        sides are at least `tile_min_side` and its rows split evenly over
+        the shards (StarDist also needs the tile rows and the width aligned
+        to the U-Net's pooling grid)."""
+        if self.mesh is None or min(shape) < self.config.extract.tile_min_side:
+            return False
+        n = self.mesh.shape[AXIS]
+        if shape[0] % n:
+            return False
+        align = 2 ** self.config.seg.unet_depth
+        return not self._stardist() or (shape[0] // n % align == 0 and shape[1] % align == 0)
+
+    def score_tiled(self, seg: np.ndarray, green: np.ndarray):
+        """One plate through the tiler (`parallel.tiling`): halo = the crop
+        capacity (aligned down to the pooling grid for StarDist), and the
+        capacities scaled with each haloed tile's area, as the fused route
+        scales them with the frame's.  StarDist re-runs once with the exact
+        twin's settings (scatter rasterizer, every NMS pair) when a tile's
+        segmentation flag fires; either backend then re-runs once at 4x
+        `cell_capacity` when a tile's selection truncated, keeping the
+        settings the first re-run chose, and warns for any flag still set
+        after that.  Returns the `TiledCells`."""
+        cfg = self.config
+        rows = seg.shape[0] // self.mesh.shape[AXIS]
+        align = 2 ** cfg.seg.unet_depth
+        halo = min(cfg.extract.crop_capacity, rows)
+        if self._stardist():
+            halo = halo // align * align
+        tile_scale = self._capacity_scale(rows + 2 * halo, seg.shape[1])
+        kw = dict(halo=halo, cell_capacity=cfg.extract.cell_capacity * tile_scale,
+                  out_size=cfg.extract.out_size, **self._qc_kwargs())
+        seg_t, green_t = (torch.as_tensor(c.astype(np.float32)) for c in (seg, green))
+        if self._stardist():
+            base = self._segment.cfg
+            seg_cfg = base if tile_scale == 1 else dataclasses.replace(
+                base, max_candidates=base.max_candidates * tile_scale,
+                raster_cap=(base.raster_cap or base.max_candidates) * tile_scale,
+                nms_max_pairs=base.nms_max_pairs * tile_scale)
+
+            def run(kw):
+                return tiled_extract_cells_stardist(seg_t, green_t, self.mesh,
+                                                    self._unets,
+                                                    seg_cfg=seg_cfg, **kw)
+        else:
+            # the label table scales with the tile as the fused route's does
+            kw["label_capacity"] = max(cfg.extract.cell_capacity * 2 * tile_scale, 1024)
+
+            def run(kw):
+                return tiled_extract_cells(seg_t, green_t, self.mesh,
+                                           threshold_percentile=cfg.seg.threshold_percentile,
+                                           norm_pmin=cfg.seg.norm_pmin,
+                                           norm_pmax=cfg.seg.norm_pmax, **kw)
+        tiled = run(kw)
+        if tiled.raster_overflow:
+            print("  tiled segmentation overflow -> exact-twin re-run")
+            seg_cfg = dataclasses.replace(seg_cfg, raster_mode="scatter", nms_max_pairs=None)
+            tiled = run(kw)
+        if tiled.cell_overflow:
+            print("  tiled cell_capacity overflow -> 4x re-run")
+            kw["cell_capacity"] *= 4
+            tiled = run(kw)
+        if tiled.raster_overflow:
+            print("  WARNING: segmentation overflow persists after the exact-twin re-run — "
+                  f"max_candidates ({seg_cfg.max_candidates}) likely binds; raise "
+                  "SegConfig.max_candidates")
+        if tiled.cell_overflow:
+            print(f"  WARNING: cell_capacity still binds at {kw['cell_capacity']}/tile — cells "
+                  "were dropped; raise ExtractConfig.cell_capacity")
+        return tiled
+
     def _score_sample_frames(self, tif_files: list) -> tuple[dict, list, list]:
         """Screen one sample: frames stream in, stack into same-shape
         batches and run the fused path; only per-cell score vectors come
@@ -215,17 +318,32 @@ class ProductionMutantScreening:
             greens = self.frames_to_device([f[1] for f in pend_frames])
             seg_fn, kwargs = self.fused_arguments(segs.shape[1], segs.shape[2])
             with self.timer.stage("score_frames"):
-                pend = score_frames_fused_start(self.model, self.scoring_params, segs, greens,
-                                                seg_fn, **kwargs)
+                pend = score_frames_fused_start(*self._scoring, segs, greens, seg_fn,
+                                                mesh=self.mesh, **kwargs)
             in_flight.append((pend, list(pend_idx)))
             pend_frames.clear()
             pend_idx.clear()
             while len(in_flight) > 1:
                 drain()
 
+        def screen_plate(seg, green, file_idx):
+            with self.timer.stage("score_frames"):
+                tiled = self.score_tiled(seg, green)
+                valid = tiled.valid.cpu().numpy()
+                scores = compute_anomaly_scores(
+                    *self._scoring, shard_batch(self.mesh, tiled.cells), valid=valid,
+                    min_votes=self.config.ensemble.min_votes)
+            if scores:
+                all_scores.append(scores)
+                all_stats.append(dict(file_index=np.full(int(valid.sum()), file_idx),
+                                      mean_intensity=tiled.mean_intensity.cpu().numpy()[valid]))
+
         stream = FrameStream(tif_files)
         for path, seg, green in stream:
             frame_names.append(os.path.basename(path))
+            if self.tiled_route(seg.shape):
+                screen_plate(seg, green, len(frame_names) - 1)
+                continue
             if pend_frames and seg.shape != pend_frames[0][0].shape:
                 flush()
             pend_frames.append((seg, green))

@@ -1,7 +1,7 @@
-"""Training entry point: `ImprovedAnomalyDetectionTraining`, on one device.
+"""Training entry point: `ImprovedAnomalyDetectionTraining`.
 
-Counterpart of `cell_image_analysis_tpu/pipeline/training.py` without a
-mesh, stage for stage:
+Counterpart of `cell_image_analysis_tpu/pipeline/training.py`, stage for
+stage:
 
   1. create_training_dataset: threaded TIFF ingest -> same-shape batches of
      8 frames through segmentation, stage A and stage B
@@ -20,7 +20,9 @@ The segmentation backend is the screener's (`models.segmentation.
 select_backend`), except that the threshold backend takes its label route
 (CC kernel, pixel regionprops): the report's solidity needs label maps.
 Everything runs on `device` (default: the card; without one and without
-`device="cpu"` the constructor raises).  Each stage has a `StageTimer`
+`device="cpu"` the constructor raises).  With a `mesh` (`parallel.mesh`)
+`fit_cae` trains data-parallel over it, and everything else runs on its
+first device, the extraction included, as in JAX.  Each stage has a `StageTimer`
 entry.  Below `TrainConfig.min_cells` cells `run` returns False.
 """
 
@@ -44,6 +46,7 @@ from cell_image_analysis_tpu_torch.models.svm import OneClassSVM
 from cell_image_analysis_tpu_torch.ops.extract import extract_cells_frames
 from cell_image_analysis_tpu_torch.ops.fft_features import fft_features
 from cell_image_analysis_tpu_torch.ops.oracle.regionprops_np import convex_area
+from cell_image_analysis_tpu_torch.parallel.mesh import canonical_device
 from cell_image_analysis_tpu_torch.pipeline import reports
 from cell_image_analysis_tpu_torch.train.trainer import fit_cae
 from cell_image_analysis_tpu_torch.utils.profiler import StageTimer
@@ -81,10 +84,15 @@ class ImprovedAnomalyDetectionTraining:
     threshold backend runs."""
 
     def __init__(self, output_dir: str, config: PipelineConfig = PipelineConfig(),
-                 unet_variables=None, device=None):
+                 unet_variables=None, device=None, mesh=None):
         self.output_dir = output_dir
         self.config = config
         self.unet_variables = unet_variables
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and canonical_device(device) != mesh.home:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.home}")
+            device = mesh.home
         self.device = artifacts.resolve_device(device)
         self.timer = StageTimer()
         segment, self._segment_fallback, self._unet = select_backend(
@@ -190,7 +198,7 @@ class ImprovedAnomalyDetectionTraining:
         with self.timer.stage("train_cae"):
             model, best_state, history = fit_cae(X, cae_cfg=self.config.cae,
                                                  train_cfg=self.config.train,
-                                                 aug_cfg=self.config.augment)
+                                                 aug_cfg=self.config.augment, mesh=self.mesh)
         self._final_state = best_state
         if figures:
             reports.plot_training_history(self.output_dir, history.history)

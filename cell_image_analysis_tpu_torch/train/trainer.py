@@ -1,9 +1,9 @@
-"""CAE training loop with Keras-parity callbacks, on one device.
+"""CAE training loop with Keras-parity callbacks.
 
-Counterpart of `cell_image_analysis_tpu/train/trainer.py` without a mesh:
-an 80/20 split (sklearn's `train_test_split` rule, seed 42), batches of
-32, steps_per_epoch = len(train) // 32, up to 100 epochs, MSE loss and
-MAE metric, Adam (`make_optimizer`), and the three Keras callbacks as one
+Counterpart of `cell_image_analysis_tpu/train/trainer.py`: an 80/20 split
+(sklearn's `train_test_split` rule, seed 42), batches of 32,
+steps_per_epoch = len(train) // 32, up to 100 epochs, MSE loss and MAE
+metric, Adam (`make_optimizer`), and the three Keras callbacks as one
 state machine (`KerasCallbackState`, the JAX package's, float32
 comparisons included):
 
@@ -19,6 +19,19 @@ the epoch's losses accumulate on the device, and one host fetch an epoch
 reads train loss, train MAE, val loss and val MAE together.  Augmentation
 draws its parameters from a `torch.Generator` on the device, seeded with
 `TrainConfig.seed` after the init's draws (`train.augment`).
+
+With a mesh (`parallel.mesh`) the data parallelism of JAX's GSPMD run is
+spelled out: the CAE is replicated over the mesh's devices (shards on one
+device share a replica), each step's augmentation parameters are drawn
+for the whole batch on the home device from the one generator, and the
+batch is split over the shards, each warped and run on its device.  The
+BatchNorm layers take the whole batch's statistics
+(`models.cae.forward_sharded`), the loss is the whole batch's mean, so
+each shard's gradient carries its share of the batch; the replicas'
+gradients are added on the home device, Adam steps there and the new
+weights are copied back.  Validation runs on the home device.  The run
+equals the unsharded one up to the order of the sums.  Without a mesh the
+same step runs on a mesh of one shard on the data's device.
 """
 
 from __future__ import annotations
@@ -32,8 +45,9 @@ import torch
 
 from cell_image_analysis_tpu_torch.config import AugmentConfig, CAEConfig, TrainConfig
 from cell_image_analysis_tpu_torch.io.artifacts import resolve_device
-from cell_image_analysis_tpu_torch.models.cae import init_cae
-from cell_image_analysis_tpu_torch.train.augment import augment_batch
+from cell_image_analysis_tpu_torch.models.cae import forward_sharded, init_cae
+from cell_image_analysis_tpu_torch.parallel.mesh import virtual_mesh
+from cell_image_analysis_tpu_torch.train.augment import sample_params, warp_batch
 
 
 @dataclass
@@ -137,30 +151,78 @@ def _copy_state(model: torch.nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _epoch(model, opt, X, perm, X_val, generator, aug_cfg) -> torch.Tensor:
-    """One epoch over the (steps, bs) index tensor `perm` of the resident
-    X, then the val evaluation (eval mode); returns the device tensor
+def _epoch(step, models, X, perm, X_val) -> torch.Tensor:
+    """One epoch of `step(batch) -> (loss, MAE)` over the (steps, bs) index
+    tensor `perm` of the resident X (`models` in train mode), then the val
+    evaluation of `models[0]` in eval mode; returns the device tensor
     (train loss, train MAE, val loss, val MAE)."""
     steps = perm.shape[0]
     losses = torch.empty(steps, device=X.device)
     maes = torch.empty(steps, device=X.device)
-    model.train()
+    for m in models:
+        m.train()
     for s in range(steps):
-        batch = augment_batch(generator, X[perm[s]], aug_cfg)
-        opt.zero_grad(set_to_none=True)
-        recon, _ = model(batch)
-        diff = batch - recon
-        loss = torch.mean(diff * diff)
-        loss.backward()
-        opt.step()
-        losses[s] = loss.detach()
-        maes[s] = torch.mean(torch.abs(diff.detach()))
+        losses[s], maes[s] = step(X[perm[s]])
+    model = models[0]
     model.eval()
     with torch.no_grad():
         recon, _ = model(X_val)
         diff = X_val - recon
         return torch.stack([losses.mean(), maes.mean(), torch.mean(diff * diff),
                             torch.mean(torch.abs(diff))])
+
+
+class _Replicas:
+    """The CAE's replicas over a mesh: `models[i]` is shard i's, `models[0]`
+    the home one, which the optimizer owns; `others` are the distinct
+    replicas on other devices."""
+
+    def __init__(self, model: torch.nn.Module, mesh):
+        from cell_image_analysis_tpu_torch.parallel.sharding import replicate
+
+        self.mesh = mesh
+        self.models = replicate(mesh, model)
+        self.others = [r for r in dict.fromkeys(self.models) if r is not model]
+
+    def add_grads(self) -> None:
+        """Adds the other replicas' gradients into the home replica's."""
+        home = self.models[0]
+        for r in self.others:
+            for p, q in zip(home.parameters(), r.parameters()):
+                p.grad.add_(q.grad.to(p.device))
+
+    @torch.no_grad()
+    def sync(self) -> None:
+        """Copies the home replica's weights and running statistics out."""
+        state = self.models[0].state_dict()
+        for r in self.others:
+            for k, v in r.state_dict().items():
+                v.copy_(state[k], non_blocking=True)
+
+
+def _step(reps: _Replicas, opt, batch, generator, aug_cfg):
+    """One step on the replicas' mesh: (loss, MAE) of the whole batch, on
+    the home device."""
+    devices = reps.mesh.devices
+    params = sample_params(generator, batch.shape[0], aug_cfg)
+    splits = [torch.tensor_split(t, len(devices)) for t in (batch, *params)]
+    xs = [warp_batch(parts[0].to(d, non_blocking=True),
+                     [t.to(d, non_blocking=True) for t in parts[1:]])
+          for d, parts in zip(devices, zip(*splits))]
+    opt.zero_grad(set_to_none=True)
+    for r in reps.others:
+        r.zero_grad(set_to_none=True)
+    outs = forward_sharded(reps.models, xs)
+    home, count = batch.device, batch.numel()
+    diffs = [x - recon for x, (recon, _) in zip(xs, outs)]
+    loss = sum((d * d).sum().to(home) for d in diffs) / count
+    loss.backward()
+    reps.add_grads()
+    opt.step()
+    reps.sync()
+    with torch.no_grad():
+        mae = sum(d.abs().sum().to(home) for d in diffs) / count
+    return loss.detach(), mae
 
 
 def fit_cae(
@@ -171,16 +233,20 @@ def fit_cae(
     verbose: bool = True,
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
+    mesh=None,
 ):
     """Train the CAE on (N, 64, 64) or (N, 64, 64, 1) cell images: a
     tensor trains on its device, a numpy array on the card (it raises
-    without one).
+    without one); with a `mesh` both train on the mesh, whose first device
+    holds the data and the optimizer.
 
     Returns (model, state, history): the model holds the best-val weights
     (EarlyStopping's restore), `state` is a copy of its state dict and
     history mirrors Keras' History.history.
     """
-    if isinstance(cells, torch.Tensor):
+    if mesh is not None:
+        dev, X = mesh.home, torch.as_tensor(cells).float()
+    elif isinstance(cells, torch.Tensor):
         dev, X = cells.device, cells.float()
     else:
         dev, X = resolve_device(None), torch.as_tensor(np.asarray(cells, np.float32))
@@ -232,11 +298,18 @@ def fit_cae(
             rng.bit_generator.state = ck["np_rng_state"]
             if verbose:
                 print(f"Resuming training from epoch {start_epoch + 1}")
+    # without a mesh the step runs on a mesh of one shard on `dev`
+    mesh = virtual_mesh(dev, 1) if mesh is None else mesh
+    if bs < mesh.shape["data"]:
+        raise ValueError(f"batch size {bs} is smaller than the mesh")
+    reps = _Replicas(model, mesh)
+
+    def step(batch):
+        return _step(reps, opt, batch, generator, aug_cfg)
 
     for epoch in range(start_epoch, train_cfg.epochs):
         perm = rng.permutation(len(X_train))[: steps * bs].reshape(steps, bs)
-        metrics = _epoch(model, opt, X_train, torch.as_tensor(perm).to(dev), X_val,
-                         generator, aug_cfg)
+        metrics = _epoch(step, reps.models, X_train, torch.as_tensor(perm).to(dev), X_val)
         train_loss, train_mae, val_loss, val_mae = (
             float(v) for v in metrics.cpu().numpy())   # the one host fetch
         history.append(loss=train_loss, mae=train_mae, val_loss=val_loss, val_mae=val_mae, lr=lr)

@@ -27,7 +27,9 @@ Phases (any failure exits non-zero before the last line is printed):
    compaction that the parent ran after its kernel timed for the record;
    then on 1024^2 structural masks (all-true, a full-frame serpentine,
    random at 0.59 density) at connectivity 1 and 2: equal to labels
-   derived from `scipy.ndimage.label` on the host;
+   derived from `scipy.ndimage.label` on the host; and the device time of
+   CC and Winograd at the shapes of phase 12's haloed tiles (every
+   profiler time of the run is taken here);
 3. the main path — StarDist screening of the bench's 16 synthetic
    1024^2 frames (made once, on the host, for phases 2, 3, 5 and 6)
    through `score_frames_fused`, run twice; the launch counts of the
@@ -123,7 +125,46 @@ Phases (any failure exits non-zero before the last line is printed):
    card's loss and each leaf's gradient from the CPU's weights
    (`UNET_LOSS_RTOL`, `UNET_GRAD_RTOL`: the data gradient through the
    kernel).  Printed beside the `nvidia-smi` line;
-12. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+12. the mesh and plates: a mesh of 4 shards (`parallel.mesh`), one GPU a
+   shard where the machine has 4, else all on cuda:0 (a virtual mesh: every
+   line of the mesh path runs except the copies between distinct cards;
+   the phase prints which, and the device count).  Every kernel call is
+   held against its plain version (`_HeldAgainstPlain`) and the counts are
+   set to 0 before each route and read after it; each route must launch
+   its kernels.  (a) the 16 frames through `score_frames_fused(mesh=)`,
+   StarDist at phase 3's settings and threshold at phase 5 (a)'s, against
+   the same calls without a mesh: frame_index, label ids, areas,
+   predictions and rates equal, scores within 1e-5
+   (tests/test_sharded_scoring.py's contract); (b) `tiled_extract_cells`
+   on a 2048^2 plate of 320 cells (`make_plate`, halo 192, 256 cells a
+   tile), scored on the mesh, against the fused threshold path on the
+   whole plate: the same number of cells, > 20, sorted areas equal, sorted
+   MSE within 1e-6, rates equal (tests/test_tiling_pipeline.py); (c) `tiled_extract_cells_stardist`
+   on a 2048^2 plate of 128 cells with the bundled U-Net at capacities
+   where no flag fires and no cap binds (16,384 candidates, more than the
+   plate's grid pixels above the prob threshold, which it counts; scatter
+   rasterizer, every NMS pair), the same contract (`TILED_MSE_GATE`); (d)
+   a 4096^2 plate of 1280 cells as a TIFF through `ProductionMutantScreening` at `PipelineConfig()` but
+   `tile_min_side` 2048, on the mesh (the tiled route) and on one device
+   (the whole frame): each route's grid pixels above the prob threshold
+   against its top-K, a held first run, then a timed one; wall seconds,
+   peak device memory, cells, the re-runs through the exact twin and the
+   launches of each route; (e) `fit_cae(mesh=)` against `fit_cae` on one
+   device from the same init, 3 epochs of phase 10's cells (without phase
+   10: the 16 frames') at batch 32, cuDNN set to its deterministic
+   algorithms (a second single-device run must equal the first).  The free
+   float32 runs drift apart as Adam and the batch statistics amplify the
+   sums' order; their gaps are printed beside those of two single-device
+   runs under cuDNN's default algorithms.  Gates: float64 free runs over
+   the same batches, mesh against one shard, losses and weights within
+   `F64_LOSS_GATE` and `F64_WEIGHT_GATE`; each float32 step from the one-device run's weights, the
+   loss, the gradient and each leaf's within `STEP_*_GATE`, the first
+   step's BatchNorm statistics within `BN_STATS_GATE`; and fit_cae on
+   tests/test_sharded_training.py's workload (80 cells, batch 16) at its
+   gates (histories 2e-3, weights 2e-2).  (Phase 2 times CC and Winograd
+   at the haloed tiles' shapes.)  `--phases 0,1,12` runs it
+   alone (exit 1: no result line);
+13. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -167,7 +208,7 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
 TRAIN_EPOCHS = 5  # phase 10's epochs (the CAE's width is never cut)
 # phase 11: the recipe of assets/unet_synthetic.pkl (scripts/make_unet_weights.py
 # --dense: 8 crowded frames of 256^2, 400 full-batch epochs at lr 3e-3), at
@@ -196,6 +237,35 @@ SAMPLES = (("wildtype", 40, 21, 0.0, None), ("mutantA", 8, 22, 0.7, None),
            ("odd", 2, 23, 0.0, (1004, 1020)))
 CHUNK_FRAMES = 8  # frames a worker process writes
 FRAME_SIZE, FRAME_CELLS = 1024, 80  # phase 7's frames, as the bench's
+# phase 12: the mesh's shards (distinct GPUs where there are as many, else
+# all on cuda:0), the plates (side, cells, seed) of (b), (c) and (d), the
+# tiles' halo (the crop capacity, a multiple of the U-Net's pooling grid),
+# and (e)'s workload
+MESH_SHARDS = 4
+TILE_PLATE = (2048, 320, 31)
+STARDIST_PLATE = (2048, 128, 33)
+BIG_PLATE = (4096, 1280, 32)
+MESH_HALO = 192
+MESH_TRAIN_EPOCHS = 3   # (e): tests/test_sharded_training.py's epochs, on phase 10's cells
+MESH_TRAIN_CELLS, MESH_TRAIN_BATCH = 80, 16   # and that test's own workload
+# (e)'s gates.  float64 free runs, mesh against one shard, the relative
+# loss at every step and the weights at the end: the training amplifies
+# the sums' order a little each step, from ~1e-16 at the first step to
+# 6.6e-15 and 1.4e-14 after 78 steps of 842 cells on the CPU and 7.1e-10
+# and 4.2e-5 after 249 steps of 3,322 on an H100 80GB HBM3 at 700 W
+# (deterministic cuDNN: it repeats); per-shard BatchNorm statistics move
+# the first step's loss by 1.5e-4 and a run's weights at the 1e-1 level
+F64_LOSS_GATE, F64_WEIGHT_GATE = 1e-6, 1e-3
+# float32 steps from shared weights: the relative loss, the whole
+# gradient's difference over its norm, and each leaf's.  On the CPU (842
+# cells, batch 32, 63 steps) right sharding read at most 1.9e-7, 2.0e-3 and
+# 1.3e-2; per-shard BatchNorm statistics at least 1.5e-4, 3.4e-2 and 1.8e-1
+STEP_LOSS_GATE, STEP_GRAD_GATE, STEP_LEAF_GATE = 1e-5, 1e-2, 5e-2
+BN_STATS_GATE = 1e-5    # each shard's (mean, var) against the batch's, of its largest
+# (c): sorted reconstruction MSE, tiled against the whole plate
+# (tests/test_tiling_pipeline.py's gate)
+TILED_MSE_GATE = 1e-6
+TILED_MIN_CELLS = 20
 
 
 def log(msg: str) -> None:
@@ -226,10 +296,9 @@ def time_ms(fn, n: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernels: tuple, n: int = 20) -> float:
-    """The device time a call of `fn()` spends in the kernels whose names
-    contain one of `kernels`: torch.profiler's device time over n calls
-    after one warm-up, divided by n (no wrapper or launch gap in it)."""
+def _device_times(fn, n: int) -> dict:
+    """{event name: device microseconds} of n calls of `fn()` under
+    torch.profiler, after one warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,10 +308,22 @@ def device_ms(fn, kernels: tuple, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if any(k in e.key for k in kernels))
-    if total <= 0:
-        raise AssertionError(f"torch.profiler saw no device time of {kernels}")
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def device_ms(fn, kernels: tuple, n: int = 20) -> float:
+    """The device time a call of `fn()` spends in the kernels whose names
+    contain one of `kernels`: torch.profiler's device time over n calls
+    after one warm-up, divided by n (no wrapper or launch gap in it).
+    Fails when the profiler saw none of them.  Every such time is taken in
+    phase 2: later in a run, or after an earlier session, the profiler has
+    come back without any device activity (PERF.md §6)."""
+    times = _device_times(fn, n)
+    total = sum(t for key, t in times.items() if any(name in key for name in kernels))
+    if not total > 0:
+        raise AssertionError(f"torch.profiler saw no device time of {kernels}; it saw "
+                             f"{sorted(times.items(), key=lambda kv: -kv[1])[:5]}")
     return total / 1e3 / n
 
 
@@ -486,6 +567,8 @@ def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
             res["cc_tile_labels"] = dict(max_abs_err=err, ms=t_d, event_ms=t_k, plain_ms=t_p,
                                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del got, ref, raw
+    for name, tile in _tile_times(torch, dev, masks, unet_vars).items():
+        res[name].update(tile)
     _cc_structural(torch, dev)
     return res
 
@@ -1414,7 +1497,7 @@ def phase_training(torch, dev, unet_vars, folders: dict, out_root: str, figures:
         raise AssertionError(f"[10] one epoch card vs CPU: relative differences {rel}")
     log(f"[10] one epoch of fit_cae on 512 cells, card vs CPU from one init: relative "
         f"differences {', '.join(f'{k} {v:.2e}' for k, v in rel.items())} (gate {TRAIN_RTOL})")
-    return launches
+    return launches, cells
 
 
 def phase_unet_training(torch, dev, out_root: str) -> dict:
@@ -1544,6 +1627,547 @@ def phase_unet_training(torch, dev, out_root: str) -> dict:
                 unet_gt_s=t_gt, unet_peak_gib=peak_gib, unet_fwd_bwd_calls=split[0])
 
 
+# ----------------------------------------------------------- phase 12: mesh --
+
+def make_mesh_for_smoke(torch):
+    """A mesh of MESH_SHARDS shards: one GPU each where the machine has
+    that many, else all on cuda:0 (a virtual mesh: every line of the mesh
+    path runs, except the copies between distinct cards)."""
+    from cell_image_analysis_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
+
+    count = torch.cuda.device_count()
+    distinct = count >= MESH_SHARDS
+    mesh = make_mesh(MESH_SHARDS) if distinct else virtual_mesh("cuda:0", MESH_SHARDS)
+    where = ("one GPU a shard" if distinct else
+             "all on one GPU, a virtual mesh: no copy between distinct cards runs")
+    log(f"[12] torch.cuda.device_count() = {count}: a mesh of {MESH_SHARDS} shards on "
+        f"{', '.join(str(d) for d in mesh.devices)} ({where})")
+    return mesh
+
+
+def _counted(torch, fn, needed: tuple, tag: str, held: bool = True):
+    """fn() with the launch counts set to 0 just before it and read just
+    after, every kernel call held against its plain version when `held`;
+    fails if a kernel in `needed` was not launched.  Returns (result,
+    launches, wall seconds)."""
+    with (_HeldAgainstPlain(torch) if held else contextlib.nullcontext()) as checks:
+        torch.cuda.synchronize()
+        _reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = _read_launches()
+    if held:
+        checks.report(tag, needed)
+    missing = [k for k in needed if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag} kernels of the path were not launched: {missing}")
+    log(f"{tag}: launches {launches}, {seconds:.3f} s wall")
+    return out, launches, seconds
+
+
+def _assert_sharded_equal(ref: tuple, got: tuple, tag: str) -> None:
+    """tests/test_sharded_scoring.py's contract: frame_index, areas and
+    predictions equal, rates equal, the other floats within 1e-5."""
+    (r, rs), (g, gs) = ref, got
+    for k in ("frame_index", "label_ids", "area"):
+        if not np.array_equal(rs[k], gs[k]):
+            raise AssertionError(f"{tag}: {k} differs from the single-device run")
+    worst = 0.0
+    for k in r:
+        if k.endswith("_rate") or k.endswith("_predictions"):
+            if not np.array_equal(r[k], g[k]):
+                raise AssertionError(f"{tag}: {k} differs from the single-device run")
+        else:
+            worst = max(worst, float(np.abs(r[k] - g[k]).max()))
+    if not worst <= 1e-5:
+        raise AssertionError(f"{tag}: scores differ by {worst:.3e} > 1e-5")
+    log(f"{tag}: {len(rs['area'])} cells; frame_index, label ids, areas, predictions and rates "
+        f"equal to the single-device run; scores within {worst:.3e} (gate 1e-5)")
+
+
+def _assert_tiled_equal(tiled_scores: dict, tiled, fused: tuple, gate: float, tag: str) -> None:
+    """tests/test_tiling_pipeline.py's contract: the same number of cells,
+    more than TILED_MIN_CELLS, sorted areas equal, sorted reconstruction MSE within
+    `gate`, the four rates equal."""
+    scores, stats = fused
+    valid = tiled.valid.cpu().numpy()
+    n_t, n_f = int(valid.sum()), len(stats["area"])
+    log(f"{tag}: tiled {n_t} cells (n_cells {tiled.n_cells}), fused single-device {n_f}")
+    if not n_t == n_f == tiled.n_cells > TILED_MIN_CELLS:
+        raise AssertionError(f"{tag}: {n_t} tiled cells against {n_f} fused")
+    if not np.array_equal(np.sort(tiled.area.cpu().numpy()[valid]), np.sort(stats["area"])):
+        raise AssertionError(f"{tag}: sorted areas differ")
+    gap = float(np.abs(np.sort(tiled_scores["reconstruction_mse"])
+                       - np.sort(scores["reconstruction_mse"])).max())
+    rates = {k: (tiled_scores[f"{k}_anomaly_rate"], scores[f"{k}_anomaly_rate"])
+             for k in ("conservative", "moderate", "ensemble", "fft")}
+    log(f"{tag}: sorted areas equal; sorted MSE within {gap:.3e} (gate {gate:.0e}); "
+        f"rates tiled/fused {rates}")
+    if not gap <= gate:
+        raise AssertionError(f"{tag}: sorted MSE differ by {gap:.3e} > {gate}")
+    if any(a != b for a, b in rates.values()):
+        raise AssertionError(f"{tag}: rates differ")
+
+
+def _plate(torch, dev, side: int, n_cells: int, seed: int) -> tuple:
+    from cell_image_analysis_tpu_torch.utils.synthetic import make_plate
+
+    t = time.perf_counter()
+    plate = make_plate(np.random.default_rng(seed), size=side, n_cells=n_cells)
+    log(f"[12] made a {side}^2 plate of {n_cells} cells in {time.perf_counter() - t:.1f} s "
+        "(host numpy, `make_plate`)")
+    return (plate, torch.tensor(plate[..., 2].astype(np.float32), device=dev),
+            torch.tensor(plate[..., 1].astype(np.float32), device=dev))
+
+
+def _tiled_scores(mesh, params_model, tiled) -> dict:
+    from cell_image_analysis_tpu_torch.parallel.sharding import replicate, shard_batch
+    from cell_image_analysis_tpu_torch.pipeline.scoring import compute_anomaly_scores
+
+    model, params = params_model
+    return compute_anomaly_scores(replicate(mesh, model), replicate(mesh, params),
+                                  shard_batch(mesh, tiled.cells),
+                                  valid=tiled.valid.cpu().numpy())
+
+
+def _mesh_a(torch, mesh, backend, stage_a, segs, greens, params_model) -> dict:
+    """(a) phase 3's and phase 5 (a)'s batches on the mesh against their
+    single-device runs."""
+    from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+
+    model, params = params_model
+    kw = dict(chunk=32, caps=(64, 96), **stage_a)
+    ref = score_frames_fused(model, params, segs, greens, backend, **kw)
+    got, launches, _ = _counted(
+        torch, lambda: score_frames_fused(model, params, segs, greens, backend, mesh=mesh, **kw),
+        ("winograd_conv3x3", "segment_sum", "clahe_cells"),
+        f"[12] (a) StarDist, {segs.shape[0]} frames")
+    _assert_sharded_equal(ref, got, "[12] (a) StarDist")
+    thresh = ThresholdBackend()
+    tkw = dict(THRESH_KW, rcap=32, fallback_segment_fn=thresh.exact_twin())
+    ref = score_frames_fused(model, params, segs, greens, thresh, **tkw)
+    got, launches_t, _ = _counted(
+        torch, lambda: score_frames_fused(model, params, segs, greens, thresh, mesh=mesh, **tkw),
+        ("segment_sum", "clahe_cells"), f"[12] (a) threshold, {segs.shape[0]} frames")
+    _assert_sharded_equal(ref, got, "[12] (a) threshold")
+    return {"a_stardist": launches, "a_threshold": launches_t}
+
+
+def _mesh_b(torch, dev, mesh, params_model) -> dict:
+    """(b) the threshold tiler on a 2048^2 plate against the fused
+    single-device path."""
+    from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
+    from cell_image_analysis_tpu_torch.parallel.tiling import tiled_extract_cells
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+
+    model, params = params_model
+    _, seg, green = _plate(torch, dev, *TILE_PLATE)
+    thresh = ThresholdBackend()
+    fused = score_frames_fused(model, params, seg[None], green[None], thresh,
+                               fallback_segment_fn=thresh.exact_twin(), chunk=32, caps=(64, 96),
+                               cell_capacity=1024, label_capacity=8192, fg_fraction=0.12,
+                               rcap=64)
+    tiled, launches, _ = _counted(
+        torch, lambda: tiled_extract_cells(seg, green, mesh, halo=MESH_HALO, cell_capacity=256,
+                                           label_capacity=2048),
+        ("cc_tile_labels", "segment_sum", "clahe_cells"),
+        f"[12] (b) threshold tiler, {TILE_PLATE[0]}^2")
+    if tiled.cell_overflow:
+        raise AssertionError("[12] (b) a tile overflowed its cell capacity")
+    _assert_tiled_equal(_tiled_scores(mesh, params_model, tiled), tiled, fused, 1e-6,
+                        "[12] (b) threshold tiler")
+    return launches
+
+
+def _mesh_c(torch, dev, mesh, unet_vars, params_model) -> dict:
+    """(c) the StarDist tiler on a 2048^2 plate against the fused
+    single-device path, at capacities where no overflow flag fires."""
+    from cell_image_analysis_tpu_torch.config import SegConfig
+    from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+    from cell_image_analysis_tpu_torch.ops.percentile import normalize_percentile
+    from cell_image_analysis_tpu_torch.parallel.tiling import tiled_extract_cells_stardist
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+
+    model, params = params_model
+    _, seg, green = _plate(torch, dev, *STARDIST_PLATE)
+    # the whole plate's top-K must not bind (checked below): 128 cells, as
+    # 320 need ~32k candidates, whose dense K x K pair search in NMS took a
+    # full smoke past 69 GiB; every candidate pair in NMS
+    cfg = SegConfig(max_candidates=1 << 14, raster_mode="scatter", nms_max_pairs=None,
+                    raster_patch=96, raster_cap=1024)
+    backend = StarDistBackend(unet_vars, cfg, device=dev)
+    with torch.inference_mode():
+        prob, _ = backend.model(normalize_percentile(seg)[None, ..., None])
+    above = int((prob > cfg.prob_thresh).sum())
+    log(f"[12] (c) {above} grid pixels of the whole plate pass the prob threshold, "
+        f"{cfg.max_candidates} candidates")
+    if above >= cfg.max_candidates:
+        raise AssertionError("[12] (c) the whole plate's top-K binds")
+    twin = _Recording(backend.exact_twin())
+    fused = score_frames_fused(model, params, seg[None], green[None], backend,
+                               fallback_segment_fn=twin, chunk=32, caps=(64, 96),
+                               cell_capacity=1024, label_capacity=1024, rcap=64)
+    if twin.calls:
+        raise AssertionError("[12] (c) an overflow flag fired on the whole plate")
+    tiled, launches, _ = _counted(
+        torch, lambda: tiled_extract_cells_stardist(seg, green, mesh, backend.model, seg_cfg=cfg,
+                                                    halo=MESH_HALO, cell_capacity=256),
+        ("winograd_conv3x3", "segment_sum", "clahe_cells"),
+        f"[12] (c) StarDist tiler, {STARDIST_PLATE[0]}^2")
+    if tiled.raster_overflow or tiled.cell_overflow:
+        raise AssertionError(f"[12] (c) a tile's flag fired: segmentation "
+                             f"{tiled.raster_overflow}, cells {tiled.cell_overflow}")
+    _assert_tiled_equal(_tiled_scores(mesh, params_model, tiled), tiled, fused, TILED_MSE_GATE,
+                        "[12] (c) StarDist tiler")
+    return launches
+
+
+def _plate_candidates(torch, dev, mesh, unet_vars, cfg, seg) -> dict:
+    """The grid pixels above the prob threshold, against the candidate
+    capacity (top-K) that the screener gives each route: the whole plate at
+    its area-scaled K, and each haloed tile at the tile's (as
+    `ProductionMutantScreening.score_tiled` sizes them)."""
+    from cell_image_analysis_tpu_torch.models.segmentation import select_backend
+    from cell_image_analysis_tpu_torch.ops.percentile import normalize_percentile
+    from cell_image_analysis_tpu_torch.parallel.tiling import halo_tiles
+
+    side = seg.shape[0]
+    backend = select_backend(cfg.seg, cfg.extract.cell_capacity, unet_vars, dev)[0]
+    scale = lambda h, w: max(1, -(-(h * w) // (1024 * 1024)))
+    rows = side // MESH_SHARDS
+    align = 2 ** cfg.seg.unet_depth
+    halo = min(cfg.extract.crop_capacity, rows) // align * align
+    norm = normalize_percentile(seg, pmin=cfg.seg.norm_pmin, pmax=cfg.seg.norm_pmax)
+    out = {}
+    with torch.inference_mode():
+        whole = int((backend.model(norm[None, ..., None])[0] > cfg.seg.prob_thresh).sum())
+        k = cfg.seg.max_candidates * scale(side, side)
+        out["whole"] = dict(above=whole, k=k, binds=whole > k)
+        tiles = [int((backend.model(t[None, ..., None].to(dev))[0] > cfg.seg.prob_thresh).sum())
+                 for t in halo_tiles(norm, mesh, halo)]
+        k = cfg.seg.max_candidates * scale(rows + 2 * halo, side)
+        out["tiled"] = dict(above=tiles, k=k, binds=max(tiles) > k)
+    log(f"[12] (d) grid pixels above the prob threshold {cfg.seg.prob_thresh}: whole plate "
+        f"{out['whole']['above']} against K = {out['whole']['k']} (binds: "
+        f"{out['whole']['binds']}); haloed tiles (halo {halo}) {tiles} against K = "
+        f"{out['tiled']['k']} a tile (binds: {out['tiled']['binds']})")
+    return out
+
+
+def _mesh_d(torch, dev, mesh, unet_vars, tmp_root: str) -> tuple:
+    """(d) a 4096^2 plate through the screener: tiled on the mesh, and the
+    whole frame without one; each route's candidates against its top-K."""
+    from cell_image_analysis_tpu_torch.config import ExtractConfig, PipelineConfig
+    from cell_image_analysis_tpu_torch.io.tiff import imwrite
+    from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
+
+    side, n_cells, seed = BIG_PLATE
+    plate, seg, _ = _plate(torch, torch.device("cpu"), side, n_cells, seed)
+    folder = os.path.join(tmp_root, f"plate{side}")
+    os.makedirs(folder)
+    imwrite(os.path.join(folder, "plate.tif"), plate)
+    del plate
+    cfg = PipelineConfig(extract=ExtractConfig(tile_min_side=side // 2))
+    binds = _plate_candidates(torch, dev, mesh, unet_vars, cfg, seg.to(dev))
+    del seg
+    needed = ("winograd_conv3x3", "segment_sum", "clahe_cells")
+    out, launches = {}, {}
+    for route, where in (("tiled", dict(mesh=mesh)), ("whole", dict(device=dev))):
+        screener = ProductionMutantScreening(STORE, cfg, unet_vars, **where)
+        fell_back = None
+        if route == "whole":
+            primary, twin = screener._segment_for(side, side)
+            fell_back = _Recording(twin)
+            screener._plate_backends[(side, side)] = (primary, fell_back)
+
+        def run():
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                res, _ = screener.screen_mutant_samples({"plate": folder},
+                                                        os.path.join(tmp_root, f"out_{route}"),
+                                                        figures=False)
+            return res["plate"], printed.getvalue()
+
+        _counted(torch, run, needed, f"[12] (d) {route}, first run")
+        for d in mesh.distinct:
+            torch.cuda.reset_peak_memory_stats(d)
+        calls0 = fell_back.calls if fell_back else 0
+        (res, printed), launches[f"d_{route}"], seconds = _counted(
+            torch, run, needed, f"[12] (d) {route}, timed", held=False)
+        peak = max(torch.cuda.max_memory_allocated(d) for d in
+                   (mesh.distinct if route == "tiled" else (dev,))) / 2 ** 30
+        if route == "tiled":
+            falls = (f"{printed.count('exact-twin re-run')} exact-twin re-runs, "
+                     f"{printed.count('4x re-run')} 4x re-runs")
+        else:
+            falls = f"{fell_back.calls - calls0} of 1 batch re-ran through the exact twin"
+        out[route] = dict(cells=res["total_cells"], seconds=seconds, peak_gib=peak,
+                          candidates=binds[route])
+        log(f"[12] (d) {side}^2 plate, {route} route: {res['total_cells']} cells, "
+            f"{seconds:.3f} s wall, peak device memory {peak:.2f} GiB, {falls}; rates "
+            + ", ".join(f"{k} {res[f'{k}_anomaly_rate']:.4f}"
+                        for k in ("conservative", "moderate", "ensemble", "fft")))
+        if "WARNING" in printed:
+            raise AssertionError(f"[12] (d) {route}: {printed[printed.index('WARNING'):][:300]}")
+        if res["total_cells"] < n_cells // 2:
+            raise AssertionError(f"[12] (d) {route}: only {res['total_cells']} cells")
+        del screener
+        torch.cuda.empty_cache()
+    log(f"[12] (d) cells: tiled {out['tiled']['cells']}, whole frame {out['whole']['cells']} "
+        f"(difference {out['tiled']['cells'] - out['whole']['cells']}); wall s tiled "
+        f"{out['tiled']['seconds']:.3f} / whole {out['whole']['seconds']:.3f}; peak GiB tiled "
+        f"{out['tiled']['peak_gib']:.2f} / whole {out['whole']['peak_gib']:.2f} ({smi_line()})")
+    return launches, out
+
+
+def _tile_times(torch, dev, masks, unet_vars) -> dict:
+    """Phase 2's device times at phase 12's haloed-tile shapes, with their
+    bounds: CC on a (1, 896, 2048) tile (the first 896 rows of two of the
+    16 frames' threshold masks side by side: a 2048^2 plate's tile of 4
+    with its halo, at the plate's cell density) and Winograd's Conv_1 on a
+    tile of the 4096^2 plate (1, 1408, 4096, 32 -> 32)."""
+    from cell_image_analysis_tpu_torch.ops.cc import label_components
+    from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
+    from cell_image_analysis_tpu_torch.ops.winograd import pad_input, winograd_operands
+
+    rows = TILE_PLATE[0] // MESH_SHARDS + 2 * MESH_HALO
+    cc_tile = torch.cat([masks[0, :rows], masks[1, :rows]], dim=1)[None].contiguous()
+    t_d = device_ms(lambda: label_components(cc_tile, 1), ("cc_tile_",))
+    b_ms, _ = bound(cc_tile.numel() * (1 + 4))
+    log(f"[2] label_components on a haloed tile's shape {tuple(cc_tile.shape)}: kernels device "
+        f"{t_d:.4f} ms; bound {b_ms * 1e3:.2f} us, {100 * b_ms / t_d:.1f}% of it")
+    times = {"cc_tile_labels": dict(tile_shape=list(cc_tile.shape), tile_ms=t_d,
+                                    tile_bound_ms=b_ms)}
+    side = BIG_PLATE[0]
+    rows = side // MESH_SHARDS + 2 * MESH_HALO
+    Wt = torch.tensor(unet_vars["params"]["Conv_1"]["kernel"], device=dev)
+    bias = torch.tensor(unet_vars["params"]["Conv_1"]["bias"], device=dev)
+    x = torch.relu(torch.randn((1, rows, side, 32), device=dev))
+    xp, ops = pad_input(x), winograd_operands(Wt, bias)
+    t_d = device_ms(lambda: winograd_conv3x3_cuda(xp, *ops), ("winograd_kernel",), n=5)
+    b_ms, _ = winograd_bound(1, rows, side, 32, 32)
+    log(f"[2] winograd Conv_1 on a haloed tile's shape (1, {rows}, {side}, 32 -> 32): kernel "
+        f"device {t_d:.3f} ms; bound {b_ms:.3f} ms, {100 * b_ms / t_d:.1f}% of it")
+    times["winograd_conv3x3"] = dict(tile_shape=[1, rows, side, 32, 32], tile_ms=t_d,
+                                     tile_bound_ms=b_ms)
+    return times
+
+
+class _BatchNormStats:
+    """Records the (mean, var) that every `_BatchNorm.normalize` call gets
+    while active."""
+
+    def __init__(self):
+        from cell_image_analysis_tpu_torch.models import cae
+
+        self.cls, self.real, self.seen = cae._BatchNorm, cae._BatchNorm.normalize, []
+
+    def __enter__(self):
+        real, seen = self.real, self.seen
+
+        def record(bn, x, mean, var):
+            seen.append((mean.detach().clone(), var.detach().clone()))
+            return real(bn, x, mean, var)
+
+        self.cls.normalize = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.normalize = self.real
+
+
+def _mesh_e(torch, dev, mesh, cells, source: str) -> dict:
+    """(e) fit_cae on the mesh against fit_cae on one device from one init,
+    3 epochs of phase 10's cells at phase 10's batch (32).  cuDNN runs its
+    deterministic algorithms (a second single-device run must equal the
+    first), yet the free float32 runs drift apart as Adam and the batch
+    statistics amplify the sums' other order; so the gates are (1) float64
+    free runs over the same batches, mesh against one shard (a fault moves
+    them at the 1e-1 level), (2) every float32 step from the one-device
+    run's weights: the loss and each leaf's gradient, and the first step's
+    BatchNorm statistics, and (3) fit_cae itself at
+    tests/test_sharded_training.py's workload and gates (80 cells, batch
+    16)."""
+    import copy
+
+    from cell_image_analysis_tpu_torch.config import AugmentConfig, CAEConfig, TrainConfig
+    from cell_image_analysis_tpu_torch.models.cae import init_cae
+    from cell_image_analysis_tpu_torch.parallel.mesh import virtual_mesh
+    from cell_image_analysis_tpu_torch.train import trainer
+
+    X = torch.as_tensor(np.asarray(cells, np.float32), device=dev).reshape(-1, 64, 64, 1)
+    aug = AugmentConfig()
+    cfg = TrainConfig(epochs=MESH_TRAIN_EPOCHS)
+
+    def gaps(a, b):
+        """(largest relative history difference, largest weight difference)."""
+        (sa, ha, _), (sb, hb, _) = a, b
+        rel = max(abs(x - y) / abs(y) for k in ("loss", "val_loss") for x, y in zip(ha[k], hb[k]))
+        return rel, max(float((sa[k].double() - sb[k].double()).abs().max()) for k in sb)
+
+    def train(m, x=X, tcfg=cfg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, state, hist = trainer.fit_cae(x, CAEConfig(), tcfg, aug, verbose=False, mesh=m)
+        torch.cuda.synchronize()
+        return state, hist.history, time.perf_counter() - t
+
+    # the batches fit_cae draws, for the hand-stepped runs
+    X_train, _ = trainer.train_test_split(X, cfg.val_split, cfg.seed)
+    bs, rng = cfg.batch_size, np.random.default_rng(cfg.seed)
+    steps = len(X_train) // bs
+    batches = [torch.as_tensor(row, device=dev) for _ in range(cfg.epochs)
+               for row in rng.permutation(len(X_train))[:steps * bs].reshape(steps, bs)]
+    one = virtual_mesh(dev, 1)
+
+    def fresh(dtype):
+        model = init_cae(torch.Generator(device=dev).manual_seed(cfg.seed)).to(dtype)
+        model.train()
+        return model, trainer.make_optimizer(CAEConfig(), model.parameters())
+
+    def free_run(m, dtype):
+        model, opt = fresh(dtype)
+        reps, gen = trainer._Replicas(model, m), torch.Generator(device=dev).manual_seed(1)
+        losses = torch.stack([trainer._step(reps, opt, X_train[i].to(dtype), gen, aug)[0]
+                              for i in batches])
+        return losses.cpu().numpy(), model.state_dict()
+
+    def grads(m, model, batch, gen_state):
+        """(loss, gradients) of one step on `m` from `model`'s weights."""
+        model = copy.deepcopy(model)
+        opt = trainer.make_optimizer(CAEConfig(), model.parameters())
+        opt.step = lambda: None
+        gen = torch.Generator(device=dev)
+        gen.set_state(gen_state)
+        loss, _ = trainer._step(trainer._Replicas(model, m), opt, batch, gen, aug)
+        return loss, [p.grad for p in model.parameters()]
+
+    noise = gaps(train(None), train(None))   # cuDNN's default algorithms, one device, twice
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {name: train(m) for name, m in
+                (("one device", None), ("control", None), ("mesh", mesh))}
+        small = {name: train(m, X[:MESH_TRAIN_CELLS], TrainConfig(
+            epochs=MESH_TRAIN_EPOCHS, batch_size=MESH_TRAIN_BATCH)) for name, m in
+            (("one device", None), ("mesh", mesh))}
+        (l64_one, s64_one), (l64_mesh, s64_mesh) = (free_run(m, torch.float64)
+                                                    for m in (one, mesh))
+        # float32, each step from the one-device run's weights
+        model, opt = fresh(torch.float32)
+        reps, gen = trainer._Replicas(model, one), torch.Generator(device=dev).manual_seed(1)
+        loss_rel, grad_rel = [], []
+        for k, i in enumerate(batches):
+            batch, state = X_train[i], gen.get_state()
+            with _BatchNormStats() as st1:
+                l1, g1 = grads(one, model, batch, state)
+            with _BatchNormStats() as st4:
+                l4, g4 = grads(mesh, model, batch, state)
+            if k == 0:
+                n_bn = len(st1.seen)
+                bn_rel = max(float((a - b).abs().max() / b.abs().max())
+                             for i_bn, (m1, v1) in enumerate(st1.seen)
+                             for s in range(MESH_SHARDS)
+                             for a, b in zip(st4.seen[i_bn * MESH_SHARDS + s], (m1, v1)))
+            loss_rel.append((l4 - l1).abs() / l1.abs())
+            whole = (torch.cat([(a - b).flatten() for a, b in zip(g4, g1)]).norm()
+                     / torch.cat([b.flatten() for b in g1]).norm())
+            grad_rel.append(torch.stack([whole] + [(a - b).norm() / b.norm()
+                                                   for a, b in zip(g4, g1)]))
+            trainer._step(reps, opt, batch, gen, aug)
+        loss_rel = torch.stack(loss_rel).cpu().numpy()
+        grad_rel = torch.stack(grad_rel).cpu().numpy()
+        whole_rel, grad_rel = grad_rel[:, 0], grad_rel[:, 1:]
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    (s1, h1, t1), (s0, h0, _), (s2, h2, t2) = (runs[k] for k in ("one device", "control", "mesh"))
+    if h0 != h1 or any(not torch.equal(s0[k], s1[k]) for k in s1):
+        raise AssertionError("[12] (e) two single-device runs differ under deterministic cuDNN")
+    rel, w = gaps(runs["mesh"], runs["one device"])
+    rel_small, w_small = gaps(small["mesh"], small["one device"])
+    rel64 = np.abs(l64_mesh - l64_one) / np.abs(l64_one)
+    l64 = float(rel64.max())
+    gap64 = {k: float((s64_mesh[k] - s64_one[k]).abs().max()) for k in s64_one}
+    w64, worst64 = max((v, k) for k, v in gap64.items())
+    names = [n for n, _ in model.named_parameters()]
+    worst_leaf = names[int(np.argmax(grad_rel.max(axis=0)))]
+    worst_w = max(s1, key=lambda k: float((s2[k].double() - s1[k].double()).abs().max()))
+    log(f"[12] (e) fit_cae on {len(cells)} cells ({source}), batch {bs}, {MESH_TRAIN_EPOCHS} "
+        f"epochs, {len(batches)} steps: with cuDNN's default algorithms two single-device runs "
+        f"differ by {noise[0]:.3e} (histories) and {noise[1]:.3e} (weights); deterministic: one "
+        f"device {t1:.2f} s (a second run equal bit for bit), mesh {t2:.2f} s, the free float32 "
+        f"runs {rel:.3e} apart in the histories and {w:.3e} in the weights (largest at "
+        f"{worst_w}); tests/test_sharded_training.py's gates 2e-3 / 2e-2 there: "
+        f"{'met' if rel <= 2e-3 and w <= 2e-2 else 'not met'} (not gated: see below)")
+    log(f"[12] (e) loss one device {h1['loss']} / mesh {h2['loss']}; val_loss {h1['val_loss']} "
+        f"/ {h2['val_loss']}")
+    log(f"[12] (e) float64 free runs over the same {len(batches)} batches, mesh against one "
+        f"shard: losses within {l64:.3e} (relative; gate {F64_LOSS_GATE:.0e}), at steps "
+        + ", ".join(f"{k + 1}: {rel64[k]:.1e}" for k in sorted({0, 9, 49, 99, len(rel64) - 1})
+                    if k < len(rel64))
+        + f"; weights within {w64:.3e} (gate {F64_WEIGHT_GATE:.0e}, largest at {worst64})")
+    log(f"[12] (e) float32, each of the {len(batches)} steps from the one-device run's weights: "
+        f"loss within {float(loss_rel.max()):.3e} (gate {STEP_LOSS_GATE:.0e}), the gradient "
+        f"within {float(whole_rel.max()):.3e} of its norm (gate {STEP_GRAD_GATE:.0e}), each "
+        f"leaf's within {float(grad_rel.max()):.3e} of its norm (gate {STEP_LEAF_GATE:.0e}; "
+        f"largest at {worst_leaf}, median over steps and leaves {float(np.median(grad_rel)):.3e});"
+        f" first step's BatchNorm statistics, {n_bn} layers, each shard's within "
+        f"{bn_rel:.3e} of the batch's (gate {BN_STATS_GATE:.0e})")
+    log(f"[12] (e) fit_cae at tests/test_sharded_training.py's workload ({MESH_TRAIN_CELLS} "
+        f"cells, batch {MESH_TRAIN_BATCH}): histories within {rel_small:.3e} (gate 2e-3), "
+        f"weights within {w_small:.3e} (gate 2e-2)")
+    failed = [what for what, ok in (
+        ("float64 losses", l64 <= F64_LOSS_GATE), ("float64 weights", w64 <= F64_WEIGHT_GATE),
+        ("step losses", float(loss_rel.max()) <= STEP_LOSS_GATE),
+        ("step gradients", float(whole_rel.max()) <= STEP_GRAD_GATE),
+        ("step leaves", float(grad_rel.max()) <= STEP_LEAF_GATE),
+        ("BatchNorm statistics", bn_rel <= BN_STATS_GATE),
+        ("small histories", rel_small <= 2e-3), ("small weights", w_small <= 2e-2)) if not ok]
+    if failed:
+        raise AssertionError(f"[12] (e) the mesh's training left the single-device run: {failed}")
+    return dict(cells=len(cells), steps=len(batches), seconds_one=t1, seconds_mesh=t2,
+                hist_rel=rel, weights_abs=w, default_noise=noise, f64=(l64, w64),
+                step_loss=float(loss_rel.max()), step_grad=float(whole_rel.max()),
+                step_leaf=float(grad_rel.max()),
+                bn_stats=bn_rel, small=(rel_small, w_small))
+
+
+def phase_mesh(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens, params_model,
+               tmp_root: str, train_cells=None) -> dict:
+    """Phase 12 (see the module docstring); returns each kernel's launches
+    on each route, the plate's and the training's numbers.
+    `train_cells` are phase 10's; without them (e) takes the cells the 16
+    frames give."""
+    import gc
+
+    from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+    from cell_image_analysis_tpu_torch.ops.extract import extract_cells_frames
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh_for_smoke(torch)
+    backend = StarDistBackend(unet_vars, seg_cfg, device=dev)
+    launches = _mesh_a(torch, mesh, backend, stage_a, segs, greens, params_model)
+    launches["b"] = _mesh_b(torch, dev, mesh, params_model)
+    launches["c"] = _mesh_c(torch, dev, mesh, unet_vars, params_model)
+    torch.cuda.empty_cache()
+    d_launches, plate = _mesh_d(torch, dev, mesh, unet_vars, tmp_root)
+    launches.update(d_launches)
+    source = "phase 10's"
+    if train_cells is None:
+        train_cells = extract_cells_frames(segs, greens, backend,
+                                           fallback_segment_fn=backend.exact_twin(), **stage_a)[0]
+        source = "the 16 frames', phase 10 not run"
+    training = _mesh_e(torch, dev, mesh, train_cells, source)
+    per_kernel = {k: {route: n[k] for route, n in launches.items()} for k in _kernel_modules()}
+    return dict(launches=per_kernel, plate=plate, training=training,
+                mesh=[str(d) for d in mesh.devices])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(str(p) for p in sorted(ALL_PHASES)),
@@ -1589,7 +2213,7 @@ def main() -> int:
             phase_build()
             mark("1")
         segs = greens = main_a = None
-        if phases & {2, 3, 5, 6}:
+        if phases & {2, 3, 5, 6, 12}:
             segs, greens = make_frames(torch, dev)
         if phases & {2, 3}:
             from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
@@ -1626,7 +2250,9 @@ def main() -> int:
             phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
                        main_result)
             mark("6")
-        del segs, greens, main_a, main_result
+        del main_a, main_result
+        if 12 not in phases:
+            del segs, greens
         torch.cuda.empty_cache()
         screening_launches = {}
         if pool is not None:
@@ -1644,14 +2270,20 @@ def main() -> int:
         if 9 in phases:
             phase_cli(folders, tmp_root, figures)
             mark("9")
-        training_launches = {}
+        training_launches, train_cells = {}, None
         if 10 in phases:
-            training_launches = phase_training(torch, dev, unet_vars, folders, tmp_root, figures)
+            training_launches, train_cells = phase_training(torch, dev, unet_vars, folders,
+                                                            tmp_root, figures)
             mark("10")
         unet_training = {}
         if 11 in phases:
             unet_training = phase_unet_training(torch, dev, tmp_root)
             mark("11")
+        mesh = {}
+        if 12 in phases:
+            mesh = phase_mesh(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens,
+                              params_model, tmp_root, train_cells)
+            mark("12")
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -1682,7 +2314,11 @@ def main() -> int:
     # screened its folders; `training_launches`: wrapper calls while phase
     # 10 trained (its timed run); `unet_training_launches`: wrapper calls
     # while phase 11's fit_unet trained the U-Net (forward and data
-    # gradient; the Winograd row also gets the step's numbers); `ms` is the
+    # gradient; the Winograd row also gets the step's numbers);
+    # `mesh_launches`: wrapper calls on each route of phase 12 (a_*: the 16
+    # frames sharded, b/c: the 2048^2 tilers, d_*: the 4096^2 plate tiled and
+    # whole), each counted from 0; `tile_*`: CC and Winograd at the shape of
+    # one of phase 12's haloed tiles, phase 2 (device ms, bound ms, shape); `ms` is the
     # kernel's device time (torch.profiler), `event_ms` one event-timed
     # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
     modules = _kernel_modules()
@@ -1692,6 +2328,7 @@ def main() -> int:
                  screening_launches=screening_launches[name],
                  training_launches=training_launches[name],
                  unet_training_launches=unet_training[name],
+                 mesh_launches=mesh["launches"][name],
                  **kernels[name])
             for name, (src, rep) in meta.items()]
     rows[0].update({k: v for k, v in unet_training.items() if k.startswith("unet_")})

@@ -2,7 +2,7 @@
 the two root scripts.
 
 The flags and their defaults against the JAX package's `screen` parser (the
-TPU knobs and `--mesh` left out, `--device` added); a run on the CPU
+TPU knobs left out, `--device` added); a run on the CPU
 through `main([...])` against the JAX CLI on the same folder; the notices of
 the bundled-weights fallback; the error paths (a malformed `--sample`, none
 at all, no GPU and no `--device cpu`, a model directory that does not
@@ -28,9 +28,9 @@ torch_threads()
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORE = os.path.join(_REPO, "assets", "screening_store_synthetic")
-# the TPU and mesh knobs, and the training flags (JAX's parser shares them
+# the TPU knobs, and the training flags (JAX's parser shares them
 # between its commands; the port's `train` adds them to its own parser)
-_LEFT_OUT = {"unet_winograd", "unet_hilo", "unet_wb16", "mesh", "epochs", "batch_size",
+_LEFT_OUT = {"unet_winograd", "unet_hilo", "unet_wb16", "epochs", "batch_size",
              "min_cells"}
 
 

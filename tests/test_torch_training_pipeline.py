@@ -13,7 +13,7 @@
 - Below `min_cells` `run` returns False and `cli train` exits 1; `cli
   train --device cpu` trains; without a GPU and without `--device cpu` it
   exits 2; the root script passes its arguments through; `train`'s flags
-  and defaults are the JAX parser's but for the TPU knobs and the mesh,
+  and defaults are the JAX parser's but for the TPU knobs,
   plus `--device` and `--no-figures`.
 """
 
@@ -259,7 +259,7 @@ def test_train_flags_equal_the_jax_train_parser():
         jax_cli._add_common(p)
 
     port, ref = _dests(cli.add_train_arguments), _dests(jax_train)
-    assert set(ref) - set(port) == {"unet_winograd", "unet_hilo", "unet_wb16", "mesh"}
+    assert set(ref) - set(port) == {"unet_winograd", "unet_hilo", "unet_wb16"}
     assert set(port) - set(ref) == {"device", "no_figures"}
     for dest in set(port) & set(ref):
         assert port[dest] == ref[dest], dest

@@ -458,3 +458,32 @@ def write_jax_store(model_dir: str, fft: bool = True, ensemble: bool = True, X=N
         fft_scaler=host["fft_scaler"] if fft else None,
         fft_detector=host["fft_det"] if fft else None)
     return host
+
+
+# a narrow StarDist U-Net for the mesh tests: depth 2, 8 base filters
+NARROW_UNET = dict(depth=2, base_filters=8, head_filters=16)
+
+
+def narrow_unet(epochs: int = 100):
+    """(port U-Net module on the CPU, its flax-layout variables): the
+    `NARROW_UNET` architecture from `init_unet(0)`, fitted on 4 synthetic
+    128^2 frames (`synthetic_training_set`), full batch at lr 1e-2, enough
+    to find most cells of a `make_frame` frame.  Both packages take the
+    variables, so their runs share every weight."""
+    from cell_image_analysis_tpu_torch.io.artifacts import unet_params_to_jax
+    from cell_image_analysis_tpu_torch.models.unet import init_unet
+    from cell_image_analysis_tpu_torch.train.unet_trainer import (
+        make_unet_optimizer,
+        synthetic_training_set,
+        training_tensors,
+        unet_train_step,
+    )
+
+    model = init_unet(0, device="cpu", **NARROW_UNET)
+    frames, labels = synthetic_training_set(n_frames=4, size=128)[:2]
+    batch = training_tensors(frames, labels, device="cpu")
+    opt = make_unet_optimizer(model, 1e-2)
+    for _ in range(epochs):
+        unet_train_step(model, opt, batch)
+    model.eval()
+    return model, {"params": unet_params_to_jax(model.state_dict())}
