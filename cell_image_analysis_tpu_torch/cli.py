@@ -3,16 +3,18 @@
   python -m cell_image_analysis_tpu_torch.cli train INPUT_FOLDER --output OUT
   python -m cell_image_analysis_tpu_torch.cli screen --models DIR \
          --sample strain1=/path/a --sample strain2=/path/b --output OUT
+  python -m cell_image_analysis_tpu_torch.cli bench [--frames 8 --size 1024 \
+         --cells-per-frame 80 --backend stardist]
 
-Counterpart of `cell_image_analysis_tpu/cli.py`'s `train` and `screen`
-commands, with the constants as flags whose defaults are the reference
-values.  They run on the card; `--device cpu` runs them on the CPU.
+Counterpart of `cell_image_analysis_tpu/cli.py`, with the constants as
+flags whose defaults are the reference values.  `bench` prints one JSON
+line (`utils.bench.run_bench`).  They run on the card; `--device cpu` runs
+them on the CPU.
 Without a GPU and without `--device cpu` they exit with an error (code 2).
 `--mesh N` shards them over the first N GPUs (`parallel.mesh.make_mesh`),
 or, with `--device cpu` or `--device cuda:K`, over N shards on that one
 device (`virtual_mesh`).
-`train` exits 1 when fewer than `--min-cells` cells pass QC.  `bench` is
-not ported yet.
+`train` exits 1 when fewer than `--min-cells` cells pass QC.
 """
 
 from __future__ import annotations
@@ -133,7 +135,7 @@ def _device(parser: argparse.ArgumentParser, args):
 
     try:
         device = resolve_device(args.device)
-        if not args.mesh:
+        if not getattr(args, "mesh", 0):
             return device, None
         if args.device is None:
             return None, make_mesh(args.mesh)
@@ -173,12 +175,36 @@ def run_screen(parser: argparse.ArgumentParser, args, unet_variables, default_su
     return results, out
 
 
+def add_bench_arguments(p: argparse.ArgumentParser):
+    p.add_argument("--frames", type=int, default=8)
+    p.add_argument("--size", type=int, default=1024)
+    p.add_argument("--cells-per-frame", type=int, default=80)
+    p.add_argument("--backend", default="stardist", choices=["threshold", "stardist"])
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU; 'cpu' runs on the CPU)")
+
+
+def run_bench(parser: argparse.ArgumentParser, args) -> int:
+    """One JSON line on stdout; the device and what `vs_baseline` compares
+    with on stderr."""
+    from cell_image_analysis_tpu_torch.utils.bench import BASELINE_NOTE, run_bench as bench
+
+    device, _ = _device(parser, args)
+    print(bench(n_frames=args.frames, size=args.size, n_cells=args.cells_per_frame,
+                backend=args.backend, device=device))
+    print(f"device: {device}; {BASELINE_NOTE}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="cell_image_analysis_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     add_train_arguments(sub.add_parser("train", help="CAE training pipeline"))
     add_screen_arguments(sub.add_parser("screen", help="mutant screening pipeline"))
+    add_bench_arguments(sub.add_parser("bench", help="throughput benchmark (one JSON line)"))
     args = parser.parse_args(argv)
+    if args.command == "bench":
+        return run_bench(parser, args)
     if args.command == "train":
         return run_train(parser, args, load_unet(args))
 

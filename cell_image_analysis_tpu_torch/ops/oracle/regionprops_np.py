@@ -1,19 +1,35 @@
-"""Convex area of a region, on the host (the training report's solidity).
+"""Numpy oracle for region properties (skimage.measure.regionprops semantics).
 
-Counterpart of `convex_area` in
-`cell_image_analysis_tpu/ops/oracle/regionprops_np.py`: the pixels whose
-centres lie inside or on the convex hull (monotone chain) of the region's
-pixel centres.  It approximates skimage's `convex_image`; solidity is a
-report statistic, never a QC gate.  The chain runs over each row's
-leftmost and rightmost pixel only: every other pixel lies on the segment
-between those two, so the hull (collinear points dropped) and the count
-are JAX's, and the chain's Python loop is two points a row long instead of
-the region's area.
+Counterpart of `cell_image_analysis_tpu/ops/oracle/regionprops_np.py`:
+
+- `regionprops_np`: per labeled region the bbox, area, centroid,
+  eccentricity, solidity, and mean/std intensity of the *bbox rectangle*
+  crop (not the masked region), as the reference QC loop reads them
+  (CAE_improved_modeltrain.py:59-105, improved_detection.py:67-109); the
+  parity harness (`utils/parity.oracle_extract_cells`) extracts with it;
+- `convex_area`: the pixels whose centres lie inside or on the convex hull
+  (monotone chain) of the region's pixel centres.  It approximates
+  skimage's `convex_image`; solidity is a report statistic, never a QC
+  gate.  The chain runs over each row's leftmost and rightmost pixel only:
+  every other pixel lies on the segment between those two, so the hull
+  (collinear points dropped) and the count are JAX's, and the chain's
+  Python loop is two points a row long instead of the region's area.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def eccentricity_from_moments(mu20: float, mu11: float, mu02: float) -> float:
+    """skimage eccentricity: sqrt(1 - l2/l1) from the (area-normalized)
+    central-moment inertia eigenvalues l1 >= l2."""
+    t = (mu20 + mu02) / 2.0
+    d = np.sqrt(((mu20 - mu02) / 2.0) ** 2 + mu11 ** 2)
+    l1, l2 = t + d, t - d
+    if l1 <= 0:
+        return 0.0
+    return float(np.sqrt(max(0.0, 1.0 - l2 / l1)))
 
 
 def convex_area(coords: np.ndarray) -> int:
@@ -64,3 +80,35 @@ def convex_area(coords: np.ndarray) -> int:
         cr = (a[0] - o[0]) * (test[:, 1] - o[1]) - (a[1] - o[1]) * (test[:, 0] - o[0])
         inside &= cr >= -1e-9
     return int(inside.sum())
+
+
+def regionprops_np(labels: np.ndarray, intensity: np.ndarray) -> list[dict]:
+    """Per-region properties for labels 1..K (0 = background)."""
+    out = []
+    for lab in range(1, int(labels.max()) + 1):
+        mask = labels == lab
+        n = int(mask.sum())
+        if n == 0:
+            continue
+        rs, cs = np.nonzero(mask)
+        minr, maxr = int(rs.min()), int(rs.max()) + 1
+        minc, maxc = int(cs.min()), int(cs.max()) + 1
+        cy, cx = rs.mean(), cs.mean()
+        mu20 = np.mean((rs - cy) ** 2)
+        mu02 = np.mean((cs - cx) ** 2)
+        mu11 = np.mean((rs - cy) * (cs - cx))
+        crop = intensity[minr:maxr, minc:maxc]
+        ca = convex_area(np.stack([rs, cs], axis=1))
+        out.append(
+            dict(
+                label=lab,
+                area=n,
+                bbox=(minr, minc, maxr, maxc),
+                centroid=(float(cy), float(cx)),
+                eccentricity=eccentricity_from_moments(mu20, mu11, mu02),
+                solidity=n / ca if ca else 0.0,
+                mean_intensity_bbox=float(crop.mean()),
+                std_intensity_bbox=float(crop.std()),
+            )
+        )
+    return out

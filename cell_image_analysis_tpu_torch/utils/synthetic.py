@@ -4,7 +4,8 @@ The same arithmetic as `cell_image_analysis_tpu/utils/synthetic.py`, so the
 same `rng` gives byte-identical frames (a test holds them equal): channel
 2 is the segmentation marker, channel 1 the green analysis channel.  Cells
 are elliptical Gaussian blobs with ring texture; a `mutant_fraction` of
-them are larger, brighter and lumpier.
+them are larger, brighter and lumpier.  `make_cells` makes pre-extracted
+64x64 cells for the training bench.
 """
 
 from __future__ import annotations
@@ -177,3 +178,22 @@ def make_dataset(
         imwrite(p, frame)
         paths.append(p)
     return paths
+
+
+def make_cells(rng: np.random.Generator, n: int, size: int = 64, mutant: bool = False) -> np.ndarray:
+    """Pre-extracted normalized cell tensors in [0,1] (BASELINE.json config #1
+    shape), bypassing segmentation."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+    out = np.empty((n, size, size), np.float32)
+    for i in range(n):
+        cy, cx = rng.uniform(size * 0.35, size * 0.65, 2)
+        r = rng.uniform(size * 0.15, size * 0.28) * (1.5 if mutant else 1.0)
+        d2 = ((yy - cy) ** 2 + (xx - cx) ** 2) / (r * r)
+        body = np.exp(-d2 * 2.0)
+        ring = np.exp(-((np.sqrt(d2) - 0.8) ** 2) * 10.0)
+        img = 0.6 * body + 0.4 * ring
+        if mutant:
+            img *= 1.0 + 0.4 * np.sin(yy * 0.9) * np.sin(xx * 0.9)
+        img += rng.normal(0, 0.03, (size, size))
+        out[i] = np.clip(img, 0, 1)
+    return out

@@ -164,7 +164,31 @@ Phases (any failure exits non-zero before the last line is printed):
    gates (histories 2e-3, weights 2e-2).  (Phase 2 times CC and Winograd
    at the haloed tiles' shapes.)  `--phases 0,1,12` runs it
    alone (exit 1: no result line);
-13. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+13. the port's bench and parity harness (`utils/bench.py`,
+   `utils/parity.py`): (a) `run_bench` for each backend at the bench's full
+   workload, 48 frames of 1024^2 (made from seed 7 by a worker process
+   that starts with the smoke; its first 16 are phase 3's frames) in 3
+   batches of 16 all started before the first wait, two warm-ups, best of
+   2, the counts set to 0 before each and read after (each path's kernels
+   must launch); no batch may fall back to the exact twin (the count is
+   printed), nor may the held batch below; the pending handles' and the
+   peak device memory are printed; then the first batch again through the
+   bench's pipeline with every kernel call held against its plain version
+   (`_HeldAgainstPlain`), StarDist's equal to phase 3's result: the same
+   cells and areas, scores within TOL; (b) `run_train_bench`, 2,048 cells,
+   12 epochs; (c) `measure_parity` on the three workloads of JAX's
+   tests/test_parity.py (threshold, 4 x 512^2, 30 cells, seed 11; the same
+   with `fit_on_extracted`; StarDist, 2 x 512^2, 24 cells, seed 13), each
+   with equal cell counts and a max anomaly-rate deviation below
+   PARITY_GATE, the `fit_on_extracted` one with a rate in (0, 0.9); (d)
+   `python -m cell_image_analysis_tpu_torch.cli bench` (started before
+   (c): it makes its 8 frames while (c) runs) and `python bench_torch.py
+   --mode train` in subprocesses at their defaults, each exit 0 with one
+   JSON line.  The bench's JSON lines and the parity dicts
+   are printed with the `nvidia-smi` line.  `--phases 0,1,13` runs it
+   alone (exit 1: no result line; the first batch is then not compared
+   with phase 3);
+14. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -174,6 +198,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
@@ -208,7 +233,7 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
 TRAIN_EPOCHS = 5  # phase 10's epochs (the CAE's width is never cut)
 # phase 11: the recipe of assets/unet_synthetic.pkl (scripts/make_unet_weights.py
 # --dense: 8 crowded frames of 256^2, 400 full-batch epochs at lr 3e-3), at
@@ -266,6 +291,15 @@ BN_STATS_GATE = 1e-5    # each shard's (mean, var) against the batch's, of its l
 # (tests/test_tiling_pipeline.py's gate)
 TILED_MSE_GATE = 1e-6
 TILED_MIN_CELLS = 20
+# phase 13: the bench's workload (JAX utils/bench.run_bench), and the
+# parity harness's three workloads (JAX tests/test_parity.py)
+BENCH_FRAMES = 48
+PARITY_WORKLOADS = (
+    ("threshold", dict(n_frames=4, size=512, n_cells=30, seed=11)),
+    ("threshold, fit_on_extracted", dict(n_frames=4, size=512, n_cells=30, seed=11,
+                                         fit_on_extracted=True)),
+    ("stardist", dict(n_frames=2, size=512, n_cells=24, seed=13, backend="stardist")))
+PARITY_GATE = 1e-3      # the largest anomaly-rate deviation (BASELINE.md's north star)
 
 
 def log(msg: str) -> None:
@@ -637,8 +671,9 @@ def _check_result(scores: dict, stats: dict, n_frames: int) -> int:
 
 
 def make_frames(torch, dev) -> tuple:
-    """The bench's 16 frames (utils/bench._make_frames(16, 1024, 80)):
-    (seg channels, green channels), each (16, 1024, 1024) on the card."""
+    """The bench's first 16 frames (utils/bench._make_frames(16, 1024, 80)):
+    (seg channels, green channels), each (16, 1024, 1024) on the card, and
+    the frames' SHA-1."""
     from cell_image_analysis_tpu_torch.utils.synthetic import make_frame
 
     t0 = time.perf_counter()
@@ -646,7 +681,8 @@ def make_frames(torch, dev) -> tuple:
     frames = np.stack([make_frame(rng, size=1024, n_cells=80) for _ in range(16)])
     log(f"[3] made 16 frames 1024^2 in {time.perf_counter() - t0:.1f} s (host numpy)")
     return (torch.tensor(frames[..., 2].astype(np.float32), device=dev),
-            torch.tensor(frames[..., 1].astype(np.float32), device=dev))
+            torch.tensor(frames[..., 1].astype(np.float32), device=dev),
+            hashlib.sha1(frames.tobytes()).hexdigest())
 
 
 def _kernel_modules():
@@ -935,16 +971,21 @@ def write_frames(folder: str, first: int, n: int, seed: int, mutant_fraction: fl
     return n
 
 
-def start_sample_folders(root: str):
-    """Start the worker processes that write phase 7's folders under
-    `root`; returns (pool, futures, {sample: folder}).  A folder of more
-    than CHUNK_FRAMES frames is written in chunks, the k-th with seed
-    `seed + 1000 * k`."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def write_bench_frames(path: str) -> int:
+    """Worker process: the bench's frames (`utils/bench._make_frames(48,
+    1024, 80)`, one rng stream: they cannot be split over processes) into
+    an .npy file."""
+    from cell_image_analysis_tpu_torch.utils.bench import _make_frames
 
-    pool = ProcessPoolExecutor(max_workers=max(1, min(6, (os.cpu_count() or 2) - 2)),
-                               mp_context=multiprocessing.get_context("spawn"))
+    np.save(path, np.stack(_make_frames(BENCH_FRAMES, FRAME_SIZE, FRAME_CELLS)))
+    return BENCH_FRAMES
+
+
+def start_sample_folders(pool, root: str):
+    """Submit to `pool` the tasks that write phase 7's folders under
+    `root`; returns (futures, {sample: folder}).  A folder of more than
+    CHUNK_FRAMES frames is written in chunks, the k-th with seed
+    `seed + 1000 * k`."""
     folders, futures = {}, []
     for name, n, seed, mutant, crop in SAMPLES:
         folders[name] = os.path.join(root, name)
@@ -957,7 +998,7 @@ def start_sample_folders(root: str):
     os.makedirs(folders["empty"])
     with open(os.path.join(folders["mutantA"], "corrupt.tif"), "wb") as f:
         f.write(b"not a tiff at all")
-    return pool, futures, folders
+    return futures, folders
 
 
 class _HeldAgainstPlain:
@@ -2167,6 +2208,147 @@ def phase_mesh(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens, params_mod
     return dict(launches=per_kernel, plate=plate, training=training,
                 mesh=[str(d) for d in mesh.devices])
 
+# ------------------------------------------------------ phase 13: the bench --
+
+def _bench_batch_held(torch, dev, backend: str, frames: np.ndarray, needed: tuple) -> tuple:
+    """The bench's first batch (frames 0-15) through the bench's own
+    pipeline, every kernel call held against its plain version, the counts
+    set to 0 before and read after; returns ((scores, stats), launches)."""
+    from cell_image_analysis_tpu_torch.utils import bench
+
+    model, params, _ = bench._fit_params(device=dev)
+    run, _, fallback = bench._batch_pipeline(model, params, backend, dev)
+    first = frames[:bench.FRAME_BATCH]
+    segs = torch.tensor(first[..., 2].astype(np.float32), device=dev)
+    greens = torch.tensor(first[..., 1].astype(np.float32), device=dev)
+    (_, result), launches, _ = _counted(torch, lambda: run(segs, greens), needed,
+                                        f"[13] {backend} bench batch 0")
+    if fallback.calls:
+        raise AssertionError(f"[13] {backend}: the held batch fell back to the exact twin")
+    return result, launches
+
+
+def _start_subprocess(args: list) -> tuple:
+    return (subprocess.Popen([sys.executable, *args], cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+
+def _check_subprocess(started: tuple, metric: str, tag: str) -> dict:
+    """Waits for a bench entry point started by `_start_subprocess`: exit 0
+    and one JSON line of `metric` on stdout."""
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    lines = stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"[13] {tag} exited {proc.returncode}:\n{stdout[-2000:]}\n"
+                             f"{stderr[-2000:]}")
+    out = json.loads(lines[0])
+    if out["metric"] != metric or not out["value"] > 0:
+        raise AssertionError(f"[13] {tag}: {lines[0]}")
+    log(f"[13] {tag}: exit 0 in {time.perf_counter() - t0:.1f} s: {lines[0]} "
+        f"({stderr.strip().splitlines()[-1]})")
+    return out
+
+
+def phase_bench(torch, dev, frames_path: str, phase3=None) -> dict:
+    """Phase 13: the port's bench and parity harness on the card.  (a)
+    `run_bench` for both backends on the 48 frames the worker made (3
+    batches of 16 in flight, two warm-ups, best of 2), the counts set to 0
+    before each and read after; no batch may fall back to the exact twin;
+    the first batch again through the bench's pipeline with every kernel
+    call held against its plain version, StarDist's equal to phase 3's
+    result (`phase3`: (result, frames' SHA-1)): the same cells and areas,
+    scores within TOL; (b) `run_train_bench` at 2,048 cells and 12 epochs;
+    (c) `measure_parity` on the three workloads of JAX's
+    tests/test_parity.py, each with `cell_count_match` and a max deviation
+    below PARITY_GATE, the `fit_on_extracted` one with a rate in (0, 0.9);
+    (d) `cli bench` and `bench_torch.py --mode train` in subprocesses at
+    their defaults, the first started before (c) so that its frames are
+    made meanwhile (their timings are printed, not gated).  Returns each
+    kernel's launches of (a)."""
+    import gc
+
+    from cell_image_analysis_tpu_torch.utils import bench
+    from cell_image_analysis_tpu_torch.utils.parity import compare_screens, measure_parity
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    frames = np.load(frames_path)
+    smi = smi_line()
+    log(f"[13] {bench.BASELINE_NOTE}")
+    out = {"launches": {}, "batch_launches": {}}
+    needed = {"stardist": ("winograd_conv3x3", "segment_sum", "clahe_cells"),
+              "threshold": ("segment_sum", "clahe_cells")}
+    for backend in ("stardist", "threshold"):
+        report = {}
+        torch.cuda.synchronize()
+        _reset_launches()
+        line = bench.run_bench(n_frames=BENCH_FRAMES, size=FRAME_SIZE, n_cells=FRAME_CELLS,
+                               backend=backend, device=dev, frames=frames, report=report)
+        launches = _read_launches()
+        log(f"[13] {line} [{smi}]")
+        log(f"[13] {backend}: best run {report['cells']} cells in {report['seconds']:.4f} s "
+            f"({report['frames_per_sec']:.2f} frames/s), {BENCH_FRAMES} frames of "
+            f"{FRAME_SIZE}^2 in {-(-BENCH_FRAMES // bench.FRAME_BATCH)} batches of "
+            f"{bench.FRAME_BATCH} all started before the first wait; the three pending handles "
+            f"held {report['pending_gib']:.3f} GiB, peak {report['peak_gib']:.3f} GiB; batches "
+            f"that fell back to the exact twin: {report['fallback_batches']} of "
+            f"{report['batches_run']}; launches (two warm-ups and two timed runs) {launches} "
+            f"[{smi}]")
+        if report["fallback_batches"]:
+            raise AssertionError(f"[13] {backend}: batches fell back at the bench's capacities")
+        missing = [k for k in needed[backend] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"[13] {backend} bench: kernels not launched: {missing}")
+        out["launches"][backend] = launches
+        out[backend] = json.loads(line)
+        result, out["batch_launches"][backend] = _bench_batch_held(torch, dev, backend, frames,
+                                                                   needed[backend])
+        if backend == "stardist" and phase3 is not None:
+            ref, sha = phase3
+            if hashlib.sha1(frames[:bench.FRAME_BATCH].tobytes()).hexdigest() != sha:
+                raise AssertionError("[13] the bench's first 16 frames are not phase 3's")
+            _, params, _ = bench._fit_params(device=dev)
+            rep = compare_screens(ref, result, {}, float(params.ensemble_mse_threshold), tol=TOL)
+            log(f"[13] stardist bench batch 0 = phase 3's frames: the same {rep['n_cells']} "
+                f"cells and areas, max score difference {rep['max_score_diff']:.3e} (gate {TOL})")
+        elif backend == "stardist":
+            log("[13] phase 3 not run: the bench's first batch is not compared with it")
+
+    report = {}
+    line = bench.run_train_bench(device=dev, report=report)
+    log(f"[13] {line} [{smi}]")
+    log(f"[13] train bench: {report['cells']} train cells ({report['steps']} steps x "
+        f"{report['cells'] // (report['steps'] * report['epochs'])} x {report['epochs']} "
+        f"epochs) in {report['seconds']:.3f} s [{smi}]")
+    out["train"] = json.loads(line)
+
+    # (d)'s `cli bench` makes its 8 frames on the host (~40 s) while (c)
+    # and the train bench's subprocess run; its timed part comes after theirs
+    cli = _start_subprocess(["-m", f"{PKG}.cli", "bench"])
+    try:
+        for name, kw in PARITY_WORKLOADS:
+            t0 = time.perf_counter()
+            res = measure_parity(device=dev, **kw)
+            log(f"[13] parity, {name} ({kw}): {json.dumps(res)}; "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not (res["cell_count_match"] and res["max_deviation"] < PARITY_GATE):
+                raise AssertionError(f"[13] parity {name}: cell count match "
+                                     f"{res['cell_count_match']}, max deviation "
+                                     f"{res['max_deviation']} (gate {PARITY_GATE})")
+            if kw.get("fit_on_extracted"):
+                rates = [v for k, v in res["device"].items() if k.endswith("rate")]
+                if not any(0.0 < r < 0.9 for r in rates):
+                    raise AssertionError(f"[13] parity {name}: saturated rates {rates}")
+        _check_subprocess(_start_subprocess(["bench_torch.py", "--mode", "train"]),
+                          "cae_train_cells_per_sec_per_chip", "bench_torch.py --mode train")
+        _check_subprocess(cli, "screening_cells_per_sec_per_chip_stardist", "cli bench")
+    finally:
+        if cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].wait()
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2206,15 +2388,26 @@ def main() -> int:
         clock["at"] = now
 
     try:
+        futures, bench_future = [], None
+        if phases & {7, 8, 9, 10, 13}:
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+
+            pool = ProcessPoolExecutor(max_workers=max(1, min(6, (os.cpu_count() or 2) - 2)),
+                                       mp_context=multiprocessing.get_context("spawn"))
+        if 13 in phases:
+            # the bench's 48 frames, one rng stream in one worker, first
+            bench_frames = os.path.join(tmp_root, "bench_frames.npy")
+            bench_future = pool.submit(write_bench_frames, bench_frames)
         if phases & {7, 8, 9, 10}:
             # the sample folders are written while phases 1-3 run
-            pool, futures, folders = start_sample_folders(tmp_root)
+            futures, folders = start_sample_folders(pool, tmp_root)
         if 1 in phases:
             phase_build()
             mark("1")
-        segs = greens = main_a = None
+        segs = greens = main_a = frames_sha = None
         if phases & {2, 3, 5, 6, 12}:
-            segs, greens = make_frames(torch, dev)
+            segs, greens, frames_sha = make_frames(torch, dev)
         if phases & {2, 3}:
             from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
 
@@ -2250,12 +2443,13 @@ def main() -> int:
             phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
                        main_result)
             mark("6")
+        phase3 = (main_result, frames_sha) if main_result is not None else None
         del main_a, main_result
         if 12 not in phases:
             del segs, greens
         torch.cuda.empty_cache()
         screening_launches = {}
-        if pool is not None:
+        if futures:
             t0 = time.perf_counter()
             n_written = sum(f.result() for f in futures)
             log(f"[7] {n_written} frames in {sorted(folders)} were written by worker "
@@ -2284,6 +2478,15 @@ def main() -> int:
             mesh = phase_mesh(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens,
                               params_model, tmp_root, train_cells)
             mark("12")
+        bench = {}
+        if 13 in phases:
+            segs = greens = params_model = None   # the card's memory for the bench
+            t0 = time.perf_counter()
+            bench_future.result()
+            log(f"[13] the bench's {BENCH_FRAMES} frames were made by a worker process; "
+                f"waited {time.perf_counter() - t0:.1f} s more for them")
+            bench = phase_bench(torch, dev, bench_frames, phase3)
+            mark("13")
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -2317,7 +2520,10 @@ def main() -> int:
     # gradient; the Winograd row also gets the step's numbers);
     # `mesh_launches`: wrapper calls on each route of phase 12 (a_*: the 16
     # frames sharded, b/c: the 2048^2 tilers, d_*: the 4096^2 plate tiled and
-    # whole), each counted from 0; `tile_*`: CC and Winograd at the shape of
+    # whole), each counted from 0; `bench_launches`: wrapper calls while
+    # phase 13's run_bench ran each backend (two warm-ups of batch 0, two
+    # timed runs of 3 batches), `bench_batch_launches`: in one held bench
+    # batch of 16 frames, each counted from 0; `tile_*`: CC and Winograd at the shape of
     # one of phase 12's haloed tiles, phase 2 (device ms, bound ms, shape); `ms` is the
     # kernel's device time (torch.profiler), `event_ms` one event-timed
     # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
@@ -2329,6 +2535,8 @@ def main() -> int:
                  training_launches=training_launches[name],
                  unet_training_launches=unet_training[name],
                  mesh_launches=mesh["launches"][name],
+                 bench_launches={b: n[name] for b, n in bench["launches"].items()},
+                 bench_batch_launches={b: n[name] for b, n in bench["batch_launches"].items()},
                  **kernels[name])
             for name, (src, rep) in meta.items()]
     rows[0].update({k: v for k, v in unet_training.items() if k.startswith("unet_")})

@@ -126,7 +126,7 @@ def test_bundled_weights_notices(tmp_path, capsys, monkeypatch):
      "--sample must be NAME=FOLDER"),
     (["screen", "--models", STORE, "--device", "cpu"], "at least one --sample"),
     (["screen", "--sample", "a=b"], "--models"),
-    (["bench"], "invalid choice"),
+    (["bench", "--backend", "unet"], "invalid choice"),
 ])
 def test_argument_errors_exit_2(argv, message, capsys):
     with pytest.raises(SystemExit) as e:

@@ -5,8 +5,9 @@
   `CAE_improved_modeltrain_torch.py`, `scripts/profile_torch_port.py`,
   `scripts/profile_torch_training.py`, `scripts/profile_torch_unet_training.py`,
   `scripts/make_unet_weights_torch.py`, `scripts/port_stardist_h5_torch.py`,
-  `scripts/clahe_bands.py`, `scripts/cc_split.py`, `scripts/cc_ablate.py`
-  or `scripts/probe_torch_profiler.py`, imports `jax`, `sklearn`, `pandas` or anything of the JAX package (an AST
+  `scripts/clahe_bands.py`, `scripts/cc_split.py`, `scripts/cc_ablate.py`,
+  `scripts/probe_torch_profiler.py`, `scripts/probe_bench_order.py` or
+  `bench_torch.py`, imports `jax`, `sklearn`, `pandas` or anything of the JAX package (an AST
   scan, one case a file; `io/keras_interop.py` reads sklearn pickles, whose
   classes the unpickler imports by name); the port's C++ sources include
   only standard headers and name no file of the JAX package.
@@ -44,7 +45,8 @@ _PORT_FILES = sorted(
        os.path.join("scripts", "port_stardist_h5_torch.py"),
        os.path.join("scripts", "clahe_bands.py"), os.path.join("scripts", "cc_split.py"),
        os.path.join("scripts", "cc_ablate.py"),
-       os.path.join("scripts", "probe_torch_profiler.py")])
+       os.path.join("scripts", "probe_torch_profiler.py"),
+       os.path.join("scripts", "probe_bench_order.py"), "bench_torch.py"])
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "pandas", "cell_image_analysis_tpu")
 _CPP_FILES = sorted(os.path.relpath(p, _REPO) for p in glob.glob(
     os.path.join(_REPO, "cell_image_analysis_tpu_torch", "native", "*.cpp")))
@@ -99,6 +101,10 @@ def test_the_scan_covers_the_port():
     assert _CPP_FILES == ["cell_image_analysis_tpu_torch/native/svm_smo.cpp",
                           "cell_image_analysis_tpu_torch/native/tiff_codec.cpp"]
     assert "cell_image_analysis_tpu_torch/utils/synthetic.py" in _PORT_FILES
+    for name in ("utils/bench.py", "utils/parity.py", "ops/oracle/clahe_np.py",
+                 "ops/oracle/stardist_np.py"):
+        assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
+    assert "bench_torch.py" in _PORT_FILES
     tree = ast.parse("import jax.numpy as jnp\nfrom cell_image_analysis_tpu.config import X\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "cell_image_analysis_tpu.config"]
 
