@@ -2,11 +2,13 @@
 
 The dataclasses of `cell_image_analysis_tpu/config.py` with the same
 fields and defaults (a test holds them field for field), the artifact file
-names and the output-file contract.  Left out: `ShardingConfig` (the port
-has no mesh yet) and `SegConfig`'s TPU knobs (`unet_dtype`,
-`unet_precision`, `unet_lvl0_*`, `unet_wb16`, `unet_hilo`,
+names and the output-file contract.  Left out: `SegConfig`'s TPU knobs
+(`unet_dtype`, `unet_precision`, `unet_lvl0_*`, `unet_wb16`, `unet_hilo`,
 `unet_winograd`): the port's U-Net always runs float32 3x3 convs through
-the Winograd kernel.
+the Winograd kernel.  `ShardingConfig` is copied as it is: the JAX package
+reads none of its fields, and neither does the port (its mesh is an
+argument, `parallel.mesh`; the plate tiler's switch is
+`ExtractConfig.tile_min_side`).
 """
 
 from __future__ import annotations
@@ -170,6 +172,18 @@ class TriageConfig:
 
 
 @dataclass(frozen=True)
+class ShardingConfig:
+    """Multi-device execution."""
+
+    data_axis: str = "data"
+    # Halo width for spatial frame tiling: U-Net receptive field plus the
+    # 10 px QC border margin.
+    halo: int = 64
+    tile_frames: bool = False        # enable spatial tiling for >=4096^2 frames
+    tile_threshold: int = 4096
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """Top-level configuration bundling every subsystem."""
 
@@ -184,6 +198,7 @@ class PipelineConfig:
     fft: FFTConfig = field(default_factory=FFTConfig)
     ensemble: EnsembleConfig = field(default_factory=EnsembleConfig)
     triage: TriageConfig = field(default_factory=TriageConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
     seed: int = 42
 
     def replace(self, **kw) -> "PipelineConfig":

@@ -13,8 +13,9 @@ shard, on that shard's device.
 - `shard_batch(mesh, x)`: the leading axis of x, zero-padded to a multiple
   of the mesh, split into one equal part a shard on its device;
 - `pad_to_multiple(x, n)`: the padding with its validity mask;
-- `masked_anomaly_rate(predictions, valid)`: the share of valid entries
-  predicted -1, its two counts summed over the shards.
+- `masked_anomaly_rate(predictions, valid, mesh)`: the share of valid
+  entries predicted -1, its two counts summed over the shards, and over
+  the processes too where `mesh` spans them (`parallel.distributed`).
 """
 
 from __future__ import annotations
@@ -104,14 +105,20 @@ def shard_batch(mesh: Mesh, x) -> list:
             for part, dev in zip(torch.tensor_split(x, n), mesh.devices)]
 
 
-def masked_anomaly_rate(predictions, valid) -> float:
+def masked_anomaly_rate(predictions, valid, mesh=None) -> float:
     """fraction(pred == -1) over the valid entries (the parity metric);
     `predictions` and `valid` are tensors or lists of one tensor a shard,
-    whose anomaly and valid counts are summed over the shards."""
+    whose anomaly and valid counts are summed over the shards.  With a
+    `parallel.distributed.GlobalMesh` they are this process's shards, and
+    the counts are summed over every process (each process must call)."""
+    from cell_image_analysis_tpu_torch.parallel.distributed import GlobalMesh, all_reduce_counts
+
     if isinstance(predictions, torch.Tensor):
         predictions, valid = [predictions], [valid]
     home = predictions[0].device
     counts = torch.stack([torch.stack([((p == -1) & v.bool()).sum(), v.bool().sum()]).to(home)
                           for p, v in zip(predictions, valid)]).sum(dim=0)
+    if isinstance(mesh, GlobalMesh):
+        counts = all_reduce_counts(counts)
     anom, total = counts.tolist()
     return anom / max(total, 1)

@@ -16,6 +16,16 @@ Counterpart of `cell_image_analysis_tpu/pipeline/scoring.py`:
   one batch in flight;
 - `compute_anomaly_scores`: `score_cells` on host cells, as a dict.
 
+With a `parallel.distributed.GlobalMesh` (processes joined by
+`torch.distributed`), `score_frames_fused_start` takes the global batch,
+which every process holds, and runs its own process's frames on its own
+shards; `score_frames_fused_wait` takes the overflow decision over every
+process (one process falling back alone would leave the others waiting in
+the next collective) and all-gathers the scored rows with global frame
+indices, so that every process returns the whole batch's result, as JAX's
+decode of the all-gathered buffer does.  Every process must make the same
+calls.
+
 Stage A (`ops.extract.stage_a`) takes one of JAX `_stage_a_one`'s three
 routes, by the segment_fn's flags: boolean masks (`returns_mask`) through
 the run-length connected components, label maps with `runs_props` through
@@ -180,6 +190,23 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
     fused body on its own frames, with no exchange between shards."""
     common = dict(chunk=chunk, caps=caps, min_votes=min_votes, out_size=out_size,
                   clip_limit=clip_limit, candidate_kwargs=candidate_kwargs)
+    from cell_image_analysis_tpu_torch.parallel.distributed import GlobalMesh, process_local_rows
+
+    if isinstance(mesh, GlobalMesh):
+        # zero frames to a multiple of the global shards, then this
+        # process's rows of the batch, through its own shards
+        n, pad = int(segs.shape[0]), (-int(segs.shape[0])) % mesh.shape["data"]
+        padded = [torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))]) if pad else x
+                  for x in (segs, greens)]
+        local = [process_local_rows(x, mesh) for x in padded]
+        pend = score_frames_fused_start(model, params, *local, segment_fn, chunk=chunk,
+                                        caps=caps, min_votes=min_votes, out_size=out_size,
+                                        clip_limit=clip_limit, mesh=mesh.local,
+                                        fallback_segment_fn=fallback_segment_fn,
+                                        **candidate_kwargs)
+        pend.update(mesh=mesh, segs0=segs, greens0=greens, n_frames=n,
+                    offset=mesh.rank * local[0].shape[0])
+        return pend
     if mesh is not None:
         from cell_image_analysis_tpu_torch.parallel.sharding import replicate, shard_batch
 
@@ -213,12 +240,15 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
 
 def _overflowed(pend: dict) -> bool:
     """Waits for the handle's host copies; True if a capacity flag fired in
-    any frame of any shard."""
+    any frame of any shard, of any process where the mesh spans them."""
+    from cell_image_analysis_tpu_torch.parallel.distributed import GlobalMesh, any_process
+
     shards = pend.get("shards") or [pend]
     for sh in shards:
         if sh["event"] is not None:
             sh["event"].synchronize()
-    return any(bool(sh["ints"][:sh["shape"][0]].any()) for sh in shards)
+    fired = any(bool(sh["ints"][:sh["shape"][0]].any()) for sh in shards)
+    return any_process(fired) if isinstance(pend["mesh"], GlobalMesh) else fired
 
 
 def _bucket_rows(pend: dict) -> torch.Tensor:
@@ -239,8 +269,8 @@ def _bucket_rows(pend: dict) -> torch.Tensor:
 
 
 def _decode(pend: dict, rows: torch.Tensor) -> tuple:
-    """Fetches one device's valid rows (the one fetch) and decodes them with
-    the host statistics into (scores dict, stats dict)."""
+    """Fetches one device's valid rows (the one fetch): (packed score rows,
+    (n, D) float32, stats dict), both numpy."""
     B, ccap, _ = pend["shape"]
     N = B * ccap
     ints, floats = pend["ints"], pend["floats"]
@@ -251,9 +281,12 @@ def _decode(pend: dict, rows: torch.Tensor) -> tuple:
     stats = {k: v[pool].numpy() for k, v in stats_h.items()}
     stats["frame_index"] = (pool // ccap).numpy()
     packed = rows[pool.to(rows.device, non_blocking=True)].cpu().numpy()   # the one fetch
-    if packed.shape[0] == 0:
-        return {}, stats
-    return _scores_dict(packed), stats
+    return packed, stats
+
+
+def _result(packed: np.ndarray, stats: dict) -> tuple:
+    """(scores dict, stats dict); the scores are {} where no cell was found."""
+    return ({}, stats) if packed.shape[0] == 0 else (_scores_dict(packed), stats)
 
 
 def _scores_dict(packed: np.ndarray) -> dict:
@@ -271,20 +304,32 @@ def _with_rates(out: dict) -> dict:
     return out
 
 
-def _merge_shards(parts: list, b_local: int, n_frames: int) -> tuple:
-    """The shards' (scores, stats) in shard order, frame indices offset by
-    s * b_local; the padding frames' rows (none in practice) are dropped
-    and the rates are taken over the merged rows."""
+def _merge_shards(parts: list, b_local: int, n_frames: int, offset: int) -> tuple:
+    """The shards' (packed, stats) in shard order, frame indices offset by
+    offset + s * b_local (the process's first frame in the batch, and the
+    shard's); the padding frames' rows (none in practice) are dropped."""
+    packed = np.concatenate([p for p, _ in parts])
     stats = {k: np.concatenate([st[k] for _, st in parts]) for k in parts[0][1]}
-    stats["frame_index"] = np.concatenate([st["frame_index"] + s * b_local
+    stats["frame_index"] = np.concatenate([st["frame_index"] + offset + s * b_local
                                            for s, (_, st) in enumerate(parts)])
     keep = stats["frame_index"] < n_frames
-    stats = {k: v[keep] for k, v in stats.items()}
-    scored = [sc for sc, _ in parts if sc]
-    if not keep.any():
-        return {}, stats
-    return _with_rates({k: np.concatenate([sc[k] for sc in scored])[keep]
-                        for k in (*_SCORE_KEYS, "fft_features")}), stats
+    return packed[keep], {k: v[keep] for k, v in stats.items()}
+
+
+_INT_STATS = ("label_ids", "area", "frame_index")
+
+
+def _gather_processes(packed: np.ndarray, stats: dict) -> tuple:
+    """Every process's (packed, stats) in rank order (collectives: every
+    process calls), the integer statistics sent as int64."""
+    from cell_image_analysis_tpu_torch.parallel.distributed import process_allgather
+
+    floats = [k for k in stats if k not in _INT_STATS]
+    ints = process_allgather(np.stack([stats[k].astype(np.int64) for k in _INT_STATS], axis=1))
+    flts = process_allgather(np.stack([stats[k] for k in floats], axis=1))
+    got = {k: ints[:, i].astype(stats[k].dtype) for i, k in enumerate(_INT_STATS)}
+    got.update({k: flts[:, i] for i, k in enumerate(floats)})
+    return process_allgather(packed), {k: got[k] for k in stats}
 
 
 @torch.inference_mode()
@@ -296,7 +341,11 @@ def score_frames_fused_wait(pend: dict) -> tuple:
     Returns (scores dict, stats dict) of numpy arrays, as JAX
     `score_frames_fused_wait`.  On a mesh the flags of every shard are
     read first, then every shard's bucket loop is launched, then each
-    shard's rows are fetched, and the shards merge with frame offsets."""
+    shard's rows are fetched, and the shards merge with frame offsets; on
+    a mesh that spans processes the flags of every process decide, and the
+    processes' rows are all-gathered."""
+    from cell_image_analysis_tpu_torch.parallel.distributed import GlobalMesh
+
     if _overflowed(pend):
         if pend["fallback_segment_fn"] is not None:
             return score_frames_fused(
@@ -312,10 +361,15 @@ def score_frames_fused_wait(pend: dict) -> tuple:
             RuntimeWarning, stacklevel=2)
     shards = pend.get("shards")
     if shards is None:
-        return _decode(pend, _bucket_rows(pend))
+        return _result(*_decode(pend, _bucket_rows(pend)))
     rows = [_bucket_rows(sh) for sh in shards]
     parts = [_decode(sh, r) for sh, r in zip(shards, rows)]
-    return _merge_shards(parts, shards[0]["shape"][0], pend["n_frames"])
+    packed, stats = _merge_shards(parts, shards[0]["shape"][0], pend["n_frames"],
+                                  pend.get("offset", 0))
+    if isinstance(pend["mesh"], GlobalMesh):
+        # every process sends, even one that holds padding frames only
+        packed, stats = _gather_processes(packed, stats)
+    return _result(packed, stats)
 
 
 def compute_anomaly_scores(model, params: ScoringParams, cells, valid=None,
@@ -347,3 +401,4 @@ def compute_anomaly_scores(model, params: ScoringParams, cells, valid=None,
     for name in _RATES:
         out[f"{name}_anomaly_rate"] = float(np.sum((host[f"{name}_predictions"] == -1) & v) / n)
     return out
+

@@ -3,7 +3,7 @@
 Counterpart of `cell_image_analysis_tpu/train/augment.py`, in two halves:
 
 - `sample_params(generator, n, cfg)` draws the seven per-image parameters
-  from a `torch.Generator` on its device: rotation theta ~ U(-r, r)
+  from a `torch.Generator`, on its device: rotation theta ~ U(-r, r)
   degrees (returned in radians), shifts ty, tx ~ U(-s, s) (fractions of
   the side), zooms zy, zx ~ U(1 - z, 1 + z) independently, and vertical /
   horizontal flips with p = 0.5 where enabled.  `jax.random` draws cannot
@@ -14,6 +14,13 @@ Counterpart of `cell_image_analysis_tpu/train/augment.py`, in two halves:
   with bilinear weights and coordinates clamped to the frame (Keras'
   'nearest' fill), in the float32 operations and order of JAX's warp.  It
   is a gather, as in JAX, where it is plain XLA and not a Pallas kernel.
+  The rotation's cosine and sine are taken where the parameters lie, and
+  they cross to the batch's device with the rest in one pinned buffer:
+  the trainer draws on the CPU, so that a seed gives the same parameters
+  on every device, and with the CPU's trigonometry (CUDA's `cosf` is not
+  the CPU's to the last bit) the rest of the warp is exactly rounded
+  elementwise arithmetic, so a warp on the card equals the CPU's bit for
+  bit.
 
 `augment_batch(generator, batch, cfg)` composes the two.
 """
@@ -58,12 +65,26 @@ def sample_params(generator: torch.Generator, n: int,
     return AugmentParams(theta, ty, tx, zy, zx, flip_h, flip_v)
 
 
+def _to_device(packed: torch.Tensor, device) -> torch.Tensor:
+    """`packed` on `device`: from the CPU to the card through pinned memory,
+    without a wait."""
+    if packed.device == device:
+        return packed
+    if packed.device.type == "cpu" and device.type == "cuda":
+        packed = packed.pin_memory()
+    return packed.to(device, non_blocking=True)
+
+
 def warp_batch(batch: torch.Tensor, params) -> torch.Tensor:
     """Bilinear affine warp of a (B, H, W, 1) batch by `params` (an
     `AugmentParams` or the seven (B,) tensors in its order)."""
     b, h, w, _ = batch.shape
     dev = batch.device
-    theta, dy, dx, sy, sx, fh, fv = (t.to(dev) for t in params)
+    theta, *rest = params
+    packed = torch.stack([torch.cos(theta.float()), torch.sin(theta.float()),
+                          *(t.float() for t in rest)])     # the flips as 0 / 1
+    cos, sin, dy, dx, sy, sx, fh, fv = _to_device(packed, dev)
+    fh, fv = fh > 0.5, fv > 0.5
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
     yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
@@ -73,7 +94,7 @@ def warp_batch(batch: torch.Tensor, params) -> torch.Tensor:
     def per(t):
         return t.float()[:, None, None]
 
-    cos, sin = per(torch.cos(theta.float())), per(torch.sin(theta.float()))
+    cos, sin = per(cos), per(sin)
     ys = (cos * y0 - sin * x0) * per(sy) + cy + per(dy) * h
     xs = (sin * y0 + cos * x0) * per(sx) + cx + per(dx) * w
     ys = torch.where(fv[:, None, None], (h - 1) - ys, ys)

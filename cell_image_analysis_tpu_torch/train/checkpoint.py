@@ -3,7 +3,9 @@
 Counterpart of `cell_image_analysis_tpu/train/checkpoint.py`: the whole
 training state — the model's and the optimizer's state dicts, the best
 weights, the callback counters, the history, numpy's permutation rng state
-and the augmentation `torch.Generator`'s state — is written after every
+and the state of the CPU `torch.Generator` that draws the augmentation
+(`train.trainer`; a checkpoint holding a CUDA generator's state, as the
+trainer wrote before it drew on the CPU, does not resume) — is written after every
 epoch, with tensors as numpy arrays, and `fit_cae(..., checkpoint_dir=...,
 resume=True)` continues where it stopped.  The write is atomic (a
 temporary file, then `os.replace`).  `load_checkpoint` uses `pickle.load`:

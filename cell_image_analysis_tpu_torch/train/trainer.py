@@ -16,15 +16,20 @@ comparisons included):
 device, each epoch ships only the (steps, bs) permutation (numpy's
 `default_rng(seed).permutation`, so both packages see the same batches),
 the epoch's losses accumulate on the device, and one host fetch an epoch
-reads train loss, train MAE, val loss and val MAE together.  Augmentation
-draws its parameters from a `torch.Generator` on the device, seeded with
-`TrainConfig.seed` after the init's draws (`train.augment`).
+reads train loss, train MAE, val loss and val MAE together.  The init and
+every step's augmentation parameters are drawn from one `torch.Generator`
+on the CPU, seeded with `TrainConfig.seed` (the init's draws first), and
+the parameters cross to the device in one pinned buffer without a wait
+(`train.augment.warp_batch`): a seed gives the same init and the same
+augmented batches on every device, as JAX's threefry draws do.  (CUDA's
+Philox stream is not the CPU's mt19937, so a generator on the card would
+train another problem than the CPU's from the same seed.)
 
 With a mesh (`parallel.mesh`) the data parallelism of JAX's GSPMD run is
 spelled out: the CAE is replicated over the mesh's devices (shards on one
 device share a replica), each step's augmentation parameters are drawn
-for the whole batch on the home device from the one generator, and the
-batch is split over the shards, each warped and run on its device.  The
+for the whole batch from the one generator, and the batch is split over
+the shards, each warped and run on its device.  The
 BatchNorm layers take the whole batch's statistics
 (`models.cae.forward_sharded`), the loss is the whole batch's mean, so
 each shard's gradient carries its share of the batch; the replicas'
@@ -32,10 +37,17 @@ gradients are added on the home device, Adam steps there and the new
 weights are copied back.  Validation runs on the home device.  The run
 equals the unsharded one up to the order of the sums.  Without a mesh the
 same step runs on a mesh of one shard on the data's device.
+
+The epochs run with cuDNN's deterministic algorithms (the flag is set for
+each epoch and put back after it), so that a seed gives the same run on
+the card each time; under cuDNN's default algorithms two card runs from
+one init part by ~1e-2 after 249 steps.  It costs nothing measurable a
+step (`scripts/probe_cae_draws.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 from typing import Optional
@@ -151,6 +163,17 @@ def _copy_state(model: torch.nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside, the caller's setting after."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def _epoch(step, models, X, perm, X_val) -> torch.Tensor:
     """One epoch of `step(batch) -> (loss, MAE)` over the (steps, bs) index
     tensor `perm` of the resident X (`models` in train mode), then the val
@@ -204,10 +227,9 @@ def _step(reps: _Replicas, opt, batch, generator, aug_cfg):
     """One step on the replicas' mesh: (loss, MAE) of the whole batch, on
     the home device."""
     devices = reps.mesh.devices
-    params = sample_params(generator, batch.shape[0], aug_cfg)
+    params = sample_params(generator, batch.shape[0], aug_cfg)   # on the generator's device
     splits = [torch.tensor_split(t, len(devices)) for t in (batch, *params)]
-    xs = [warp_batch(parts[0].to(d, non_blocking=True),
-                     [t.to(d, non_blocking=True) for t in parts[1:]])
+    xs = [warp_batch(parts[0].to(d, non_blocking=True), parts[1:])
           for d, parts in zip(devices, zip(*splits))]
     opt.zero_grad(set_to_none=True)
     for r in reps.others:
@@ -259,11 +281,12 @@ def fit_cae(
     bs = train_cfg.batch_size
     steps = max(1, len(X_train) // bs)
 
-    generator = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    # the draws come from the CPU whatever the device (module docstring)
+    generator = torch.Generator().manual_seed(train_cfg.seed)
     model = init_cae(generator, input_size=X.shape[1],
                      encoder_filters=cae_cfg.encoder_filters,
                      decoder_filters=cae_cfg.decoder_filters,
-                     bn_momentum=cae_cfg.bn_momentum, bn_epsilon=cae_cfg.bn_epsilon)
+                     bn_momentum=cae_cfg.bn_momentum, bn_epsilon=cae_cfg.bn_epsilon).to(dev)
     opt = make_optimizer(cae_cfg, model.parameters())
     history = History()
     lr = cae_cfg.learning_rate
@@ -309,7 +332,8 @@ def fit_cae(
 
     for epoch in range(start_epoch, train_cfg.epochs):
         perm = rng.permutation(len(X_train))[: steps * bs].reshape(steps, bs)
-        metrics = _epoch(step, reps.models, X_train, torch.as_tensor(perm).to(dev), X_val)
+        with _cudnn_deterministic():
+            metrics = _epoch(step, reps.models, X_train, torch.as_tensor(perm).to(dev), X_val)
         train_loss, train_mae, val_loss, val_mae = (
             float(v) for v in metrics.cpu().numpy())   # the one host fetch
         history.append(loss=train_loss, mae=train_mae, val_loss=val_loss, val_mae=val_mae, lr=lr)

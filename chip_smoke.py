@@ -95,12 +95,12 @@ Phases (any failure exits non-zero before the last line is printed):
    five batches are extracted again with every kernel call held against
    its plain version (`_HeldAgainstPlain`: B = 8, label capacity 1024, 8 x
    512 crop slots, the exact twin's pixel table) and must give the timed
-   run's cells.  Card against CPU from one init made without JAX: (a) two
-   frames cut to 512^2 through `extract_batch`: the same cells, those of
-   equal area within TOL, at most 2 whose area differs (label pixels at a
-   polygon's knife edge); (b) one epoch of `fit_cae` on 512 of the
-   extracted cells, augmentation off: each history value within
-   `TRAIN_RTOL`.  Printed: the `StageTimer` stages, extraction cells/s,
+   run's cells.  Card against CPU: (a) two frames cut to 512^2 through
+   `extract_batch`: the same cells, those of equal area within TOL, at most
+   2 whose area differs (label pixels at a polygon's knife edge); (b) one
+   epoch of `fit_cae` on 512 of the extracted cells, augmentation off, each
+   from the init that `fit_cae` draws on the CPU for either device: each
+   history value within `TRAIN_RTOL`.  Printed: the `StageTimer` stages, extraction cells/s,
    training images/s, detector-fit seconds (SMO included), the solidity
    loop's seconds and peak device memory, with the `nvidia-smi` line;
 11. U-Net training on the card, at full width (depth 3, 32 base filters,
@@ -151,13 +151,14 @@ Phases (any failure exits non-zero before the last line is printed):
    peak device memory, cells, the re-runs through the exact twin and the
    launches of each route; (e) `fit_cae(mesh=)` against `fit_cae` on one
    device from the same init, 3 epochs of phase 10's cells (without phase
-   10: the 16 frames') at batch 32, cuDNN set to its deterministic
+   10: the 16 frames') at batch 32; `fit_cae` runs cuDNN's deterministic
    algorithms (a second single-device run must equal the first).  The free
    float32 runs drift apart as Adam and the batch statistics amplify the
-   sums' order; their gaps are printed beside those of two single-device
-   runs under cuDNN's default algorithms.  Gates: float64 free runs over
-   the same batches, mesh against one shard, losses and weights within
-   `F64_LOSS_GATE` and `F64_WEIGHT_GATE`; each float32 step from the one-device run's weights, the
+   sums' order; their gaps are printed, not gated.  Gates: float64 free
+   runs over the same batches on PyTorch's own convolutions, mesh against
+   one shard, losses and weights within `F64_LOSS_GATE` and
+   `F64_WEIGHT_GATE` (the same runs on cuDNN are printed beside them, not
+   gated: `F64_LOSS_GATE`'s note); each float32 step from the one-device run's weights, the
    loss, the gradient and each leaf's within `STEP_*_GATE`, the first
    step's BatchNorm statistics within `BN_STATS_GATE`; and fit_cae on
    tests/test_sharded_training.py's workload (80 cells, batch 16) at its
@@ -188,7 +189,41 @@ Phases (any failure exits non-zero before the last line is printed):
    are printed with the `nvidia-smi` line.  `--phases 0,1,13` runs it
    alone (exit 1: no result line; the first batch is then not compared
    with phase 3);
-14. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+14. the multi-process runtime (`parallel/distributed.py`) through
+   `scripts/dryrun_dist_torch.py`: its 2 fresh interpreters joined
+   by `torch.distributed` with gloo, all on cuda:0 (NCCL refuses two ranks
+   on one GPU), each with a virtual mesh of `DIST_LOCAL_SHARDS` shards of
+   one global mesh.  (a) StarDist: phase 3's 16 frames at phase 3's
+   settings, each process screening its 8 through `score_frames_fused`
+   (a warm-up run, then a timed one, the counts set to 0 between them): the
+   result that every process holds (all-gathered, global frame indices)
+   equals phase 3's under the sharded contract (frame_index, label ids and
+   areas equal, scores within 1e-5, predictions and rates equal; without
+   phase 3 the same call is made here first), and each worker launched the
+   Winograd, segment-sum and CLAHE kernels; (b) the threshold backend's
+   label route at the size of JAX's `scripts/dryrun_dcn.py` (8 frames of
+   128^2, 4 cells each) and its three checks, each worker against its own
+   single-process run: masked counts, the detectors' counts of 64 cells,
+   `score_frames_fused` (the CC kernel too).  The workers' wall seconds,
+   peak memory and launches are printed with the `nvidia-smi` line.
+   `--phases 0,1,14` runs it alone (exit 1: no result line);
+15. the train round trip, card against CPU (JAX's
+   `scripts/parity_train_onchip.py`): `ROUND_TRIP`'s synthetic training
+   frames, StarDist extraction, `fit_cae` with the augmentation on, the
+   detector fits, the store written and read back by the screener, which
+   screens a wildtype and a mutant folder; once on the card and once on
+   the CPU, from the same seeds, with no monkeypatch.  Gates: (a) the
+   extraction: equal cell counts, at most 2 cells of other area, the rest
+   within TOL; (b) float64 free runs over `fit_cae`'s batches and draws,
+   card against CPU: losses within `F64_LOSS_GATE`, weights within
+   `F64_WEIGHT_GATE`, and the first batch warped on the card equal to the
+   CPU's bit for bit; (c) every float32 step from the CPU run's weights:
+   the loss and each leaf's gradient within `STEP_*_GATE`; (d) the two
+   float32 `fit_cae` runs stop at the same epoch with the same lr history
+   (else both histories are printed).  The two stores' screening rates are
+   printed side by side, not gated (JAX's rate band is vacuous), with the
+   phase's seconds.  `--phases 0,1,15` runs it alone;
+16. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -233,7 +268,7 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
 TRAIN_EPOCHS = 5  # phase 10's epochs (the CAE's width is never cut)
 # phase 11: the recipe of assets/unet_synthetic.pkl (scripts/make_unet_weights.py
 # --dense: 8 crowded frames of 256^2, 400 full-batch epochs at lr 3e-3), at
@@ -274,12 +309,19 @@ MESH_HALO = 192
 MESH_TRAIN_EPOCHS = 3   # (e): tests/test_sharded_training.py's epochs, on phase 10's cells
 MESH_TRAIN_CELLS, MESH_TRAIN_BATCH = 80, 16   # and that test's own workload
 # (e)'s gates.  float64 free runs, mesh against one shard, the relative
-# loss at every step and the weights at the end: the training amplifies
-# the sums' order a little each step, from ~1e-16 at the first step to
-# 6.6e-15 and 1.4e-14 after 78 steps of 842 cells on the CPU and 7.1e-10
-# and 4.2e-5 after 249 steps of 3,322 on an H100 80GB HBM3 at 700 W
-# (deterministic cuDNN: it repeats); per-shard BatchNorm statistics move
-# the first step's loss by 1.5e-4 and a run's weights at the 1e-1 level
+# loss at every step and the weights at the end, on PyTorch's own
+# convolutions: 6.6e-15 and 1.4e-14 after 78 steps of 842 cells on the
+# CPU, 2.3e-14 and 8.6e-13 after 249 steps of 3,322 on an H100 80GB HBM3
+# at 700 W.  (On cuDNN, whose float64 rounding follows the shard's batch
+# size, the runs are ~1e-12 apart in the weights by step 7; at step 8
+# that gap flips the sign of 181 of conv 0's ReLU inputs, which lie
+# within it of 0; the flipped pixels move convs.0.bias's gradient by
+# 3.9e-5, which Adam, dividing by the root of a running square, turns
+# into a 1.1e-1 difference in that leaf's step direction; later flips add
+# to it, and after 249 steps the runs are 1.1e-3 (losses) and 3.1e-2
+# (weights) apart.  scripts/probe_mesh_f64.py traces it step by step.)
+# Per-shard BatchNorm statistics move the first step's loss by 1.5e-4 and
+# a run's weights at the 1e-1 level
 F64_LOSS_GATE, F64_WEIGHT_GATE = 1e-6, 1e-3
 # float32 steps from shared weights: the relative loss, the whole
 # gradient's difference over its norm, and each leaf's.  On the CPU (842
@@ -300,6 +342,13 @@ PARITY_WORKLOADS = (
                                          fit_on_extracted=True)),
     ("stardist", dict(n_frames=2, size=512, n_cells=24, seed=13, backend="stardist")))
 PARITY_GATE = 1e-3      # the largest anomaly-rate deviation (BASELINE.md's north star)
+# phase 14: the processes of scripts/dryrun_dist_torch.py, all on cuda:0 with
+# gloo (NCCL refuses two ranks on one GPU), each with a virtual mesh of 2
+DIST_LOCAL_SHARDS, DIST_TIMEOUT = 2, 600
+# phase 15: the train round trip of JAX's scripts/parity_train_onchip.py (6
+# training frames, 8 epochs) at 512^2 and 50 cells a frame, a few hundred
+# cells, so that its CPU half stays near two minutes: frames, side, cells, epochs
+ROUND_TRIP = (6, 512, 50, 8)
 
 
 def log(msg: str) -> None:
@@ -1403,7 +1452,6 @@ def phase_cli(folders: dict, out_root: str, figures: bool) -> None:
 
 
 def phase_training(torch, dev, unet_vars, folders: dict, out_root: str, figures: bool) -> dict:
-    import copy
     import dataclasses
 
     from cell_image_analysis_tpu_torch.config import (
@@ -1419,7 +1467,6 @@ def phase_training(torch, dev, unet_vars, folders: dict, out_root: str, figures:
         TrainConfig,
     )
     from cell_image_analysis_tpu_torch.io.ingest import FrameStream, frames_to_device, list_tiffs
-    from cell_image_analysis_tpu_torch.models.cae import init_cae
     from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
     from cell_image_analysis_tpu_torch.pipeline.training import ImprovedAnomalyDetectionTraining
     from cell_image_analysis_tpu_torch.train import trainer as trainer_mod
@@ -1520,18 +1567,13 @@ def phase_training(torch, dev, unet_vars, folders: dict, out_root: str, figures:
     log(f"[10] extraction card vs CPU, two frames cut to 512^2: {len(got[0])} cells on both, "
         f"max difference {worst:.3e}; cells whose area differs: {int((~same).sum())}")
 
-    init = init_cae(torch.Generator().manual_seed(0))
-    real_init = trainer_mod.init_cae
-    trainer_mod.init_cae = lambda generator, **kw: copy.deepcopy(init).to(generator.device)
+    # fit_cae draws its init from a CPU generator on either device
     off = AugmentConfig(rotation_range=0, width_shift_range=0, height_shift_range=0,
                         zoom_range=0, horizontal_flip=False, vertical_flip=False)
     one = TrainConfig(epochs=1)
-    try:
-        hist = [trainer_mod.fit_cae(torch.as_tensor(cells[:512], device=d), train_cfg=one,
-                                    aug_cfg=off, verbose=False)[2].history
-                for d in (dev, torch.device("cpu"))]
-    finally:
-        trainer_mod.init_cae = real_init
+    hist = [trainer_mod.fit_cae(torch.as_tensor(cells[:512], device=d), train_cfg=one,
+                                aug_cfg=off, verbose=False)[2].history
+            for d in (dev, torch.device("cpu"))]
     rel = {k: abs(hist[0][k][0] - hist[1][k][0]) / abs(hist[1][k][0])
            for k in ("loss", "mae", "val_loss", "val_mae")}
     if max(rel.values()) > TRAIN_RTOL:
@@ -2022,12 +2064,15 @@ class _BatchNormStats:
 
 def _mesh_e(torch, dev, mesh, cells, source: str) -> dict:
     """(e) fit_cae on the mesh against fit_cae on one device from one init,
-    3 epochs of phase 10's cells at phase 10's batch (32).  cuDNN runs its
-    deterministic algorithms (a second single-device run must equal the
-    first), yet the free float32 runs drift apart as Adam and the batch
+    3 epochs of phase 10's cells at phase 10's batch (32).  fit_cae runs
+    cuDNN's deterministic algorithms (a second single-device run must equal
+    the first), yet the free float32 runs drift apart as Adam and the batch
     statistics amplify the sums' other order; so the gates are (1) float64
-    free runs over the same batches, mesh against one shard (a fault moves
-    them at the 1e-1 level), (2) every float32 step from the one-device
+    free runs over the same batches on PyTorch's own convolutions, mesh
+    against one shard (a fault moves them at the 1e-1 level; on cuDNN a
+    ReLU sign flip that Adam amplifies moves them at 1e-3: printed, not
+    gated),
+    (2) every float32 step from the one-device
     run's weights: the loss and each leaf's gradient, and the first step's
     BatchNorm statistics, and (3) fit_cae itself at
     tests/test_sharded_training.py's workload and gates (80 cells, batch
@@ -2065,13 +2110,13 @@ def _mesh_e(torch, dev, mesh, cells, source: str) -> dict:
     one = virtual_mesh(dev, 1)
 
     def fresh(dtype):
-        model = init_cae(torch.Generator(device=dev).manual_seed(cfg.seed)).to(dtype)
+        model = init_cae(torch.Generator().manual_seed(cfg.seed)).to(dev, dtype)
         model.train()
         return model, trainer.make_optimizer(CAEConfig(), model.parameters())
 
     def free_run(m, dtype):
         model, opt = fresh(dtype)
-        reps, gen = trainer._Replicas(model, m), torch.Generator(device=dev).manual_seed(1)
+        reps, gen = trainer._Replicas(model, m), torch.Generator().manual_seed(1)
         losses = torch.stack([trainer._step(reps, opt, X_train[i].to(dtype), gen, aug)[0]
                               for i in batches])
         return losses.cpu().numpy(), model.state_dict()
@@ -2081,13 +2126,12 @@ def _mesh_e(torch, dev, mesh, cells, source: str) -> dict:
         model = copy.deepcopy(model)
         opt = trainer.make_optimizer(CAEConfig(), model.parameters())
         opt.step = lambda: None
-        gen = torch.Generator(device=dev)
+        gen = torch.Generator()
         gen.set_state(gen_state)
         loss, _ = trainer._step(trainer._Replicas(model, m), opt, batch, gen, aug)
         return loss, [p.grad for p in model.parameters()]
 
-    noise = gaps(train(None), train(None))   # cuDNN's default algorithms, one device, twice
-    deterministic = torch.backends.cudnn.deterministic
+    deterministic = torch.backends.cudnn.deterministic   # for the hand-stepped runs
     torch.backends.cudnn.deterministic = True
     try:
         runs = {name: train(m) for name, m in
@@ -2095,11 +2139,20 @@ def _mesh_e(torch, dev, mesh, cells, source: str) -> dict:
         small = {name: train(m, X[:MESH_TRAIN_CELLS], TrainConfig(
             epochs=MESH_TRAIN_EPOCHS, batch_size=MESH_TRAIN_BATCH)) for name, m in
             (("one device", None), ("mesh", mesh))}
-        (l64_one, s64_one), (l64_mesh, s64_mesh) = (free_run(m, torch.float64)
-                                                    for m in (one, mesh))
+        # float64 on cuDNN, printed beside the gate; then the mesh's logic on
+        # PyTorch's own convolutions, gated (F64_LOSS_GATE's note)
+        (c64_one, cs64_one), (c64_mesh, cs64_mesh) = (free_run(m, torch.float64)
+                                                      for m in (one, mesh))
+        enabled = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        try:
+            (l64_one, s64_one), (l64_mesh, s64_mesh) = (free_run(m, torch.float64)
+                                                        for m in (one, mesh))
+        finally:
+            torch.backends.cudnn.enabled = enabled
         # float32, each step from the one-device run's weights
         model, opt = fresh(torch.float32)
-        reps, gen = trainer._Replicas(model, one), torch.Generator(device=dev).manual_seed(1)
+        reps, gen = trainer._Replicas(model, one), torch.Generator().manual_seed(1)
         loss_rel, grad_rel = [], []
         for k, i in enumerate(batches):
             batch, state = X_train[i], gen.get_state()
@@ -2134,23 +2187,26 @@ def _mesh_e(torch, dev, mesh, cells, source: str) -> dict:
     l64 = float(rel64.max())
     gap64 = {k: float((s64_mesh[k] - s64_one[k]).abs().max()) for k in s64_one}
     w64, worst64 = max((v, k) for k, v in gap64.items())
+    c64 = float((np.abs(c64_mesh - c64_one) / np.abs(c64_one)).max())
+    cw64, cworst64 = max((float((cs64_mesh[k] - cs64_one[k]).abs().max()), k) for k in cs64_one)
     names = [n for n, _ in model.named_parameters()]
     worst_leaf = names[int(np.argmax(grad_rel.max(axis=0)))]
     worst_w = max(s1, key=lambda k: float((s2[k].double() - s1[k].double()).abs().max()))
     log(f"[12] (e) fit_cae on {len(cells)} cells ({source}), batch {bs}, {MESH_TRAIN_EPOCHS} "
-        f"epochs, {len(batches)} steps: with cuDNN's default algorithms two single-device runs "
-        f"differ by {noise[0]:.3e} (histories) and {noise[1]:.3e} (weights); deterministic: one "
+        f"epochs, {len(batches)} steps, cuDNN deterministic: one "
         f"device {t1:.2f} s (a second run equal bit for bit), mesh {t2:.2f} s, the free float32 "
         f"runs {rel:.3e} apart in the histories and {w:.3e} in the weights (largest at "
         f"{worst_w}); tests/test_sharded_training.py's gates 2e-3 / 2e-2 there: "
         f"{'met' if rel <= 2e-3 and w <= 2e-2 else 'not met'} (not gated: see below)")
     log(f"[12] (e) loss one device {h1['loss']} / mesh {h2['loss']}; val_loss {h1['val_loss']} "
         f"/ {h2['val_loss']}")
-    log(f"[12] (e) float64 free runs over the same {len(batches)} batches, mesh against one "
-        f"shard: losses within {l64:.3e} (relative; gate {F64_LOSS_GATE:.0e}), at steps "
+    log(f"[12] (e) float64 free runs over the same {len(batches)} batches, PyTorch's own "
+        f"convolutions, mesh against one shard: losses within {l64:.3e} (relative; gate {F64_LOSS_GATE:.0e}), at steps "
         + ", ".join(f"{k + 1}: {rel64[k]:.1e}" for k in sorted({0, 9, 49, 99, len(rel64) - 1})
                     if k < len(rel64))
-        + f"; weights within {w64:.3e} (gate {F64_WEIGHT_GATE:.0e}, largest at {worst64})")
+        + f"; weights within {w64:.3e} (gate {F64_WEIGHT_GATE:.0e}, largest at {worst64}); "
+        f"the same runs on cuDNN (not gated: F64_LOSS_GATE's note): losses within {c64:.3e}, "
+        f"weights within {cw64:.3e} (largest at {cworst64})")
     log(f"[12] (e) float32, each of the {len(batches)} steps from the one-device run's weights: "
         f"loss within {float(loss_rel.max()):.3e} (gate {STEP_LOSS_GATE:.0e}), the gradient "
         f"within {float(whole_rel.max()):.3e} of its norm (gate {STEP_GRAD_GATE:.0e}), each "
@@ -2171,7 +2227,7 @@ def _mesh_e(torch, dev, mesh, cells, source: str) -> dict:
     if failed:
         raise AssertionError(f"[12] (e) the mesh's training left the single-device run: {failed}")
     return dict(cells=len(cells), steps=len(batches), seconds_one=t1, seconds_mesh=t2,
-                hist_rel=rel, weights_abs=w, default_noise=noise, f64=(l64, w64),
+                hist_rel=rel, weights_abs=w, f64=(l64, w64), f64_cudnn=(c64, cw64),
                 step_loss=float(loss_rel.max()), step_grad=float(whole_rel.max()),
                 step_leaf=float(grad_rel.max()),
                 bn_stats=bn_rel, small=(rel_small, w_small))
@@ -2350,6 +2406,290 @@ def phase_bench(torch, dev, frames_path: str, phase3=None) -> dict:
     return out
 
 
+# ----------------------------------------- phase 14: processes, phase 15 --
+
+def _script(name: str):
+    """A script of the repository's `scripts/` as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _dist_run(dryrun, out: str, extra: list) -> tuple:
+    """`scripts/dryrun_dist_torch.py` in a subprocess, its gloo processes on
+    cuda:0 with DIST_LOCAL_SHARDS shards each; returns (each worker's JSON,
+    wall seconds)."""
+    cmd = [sys.executable, dryrun.__file__, "--device", "cuda:0", "--backend", "gloo",
+           "--local-shards", str(DIST_LOCAL_SHARDS),
+           "--timeout", str(DIST_TIMEOUT), "--out", out, *extra]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DIST_TIMEOUT + 60)
+    wall = time.perf_counter() - t
+    log("\n".join(f"[14] {line}" for line in proc.stdout.strip().splitlines()[-16:]))
+    if proc.returncode != 0:
+        raise AssertionError(f"[14] {' '.join(cmd[1:])} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    results = []
+    for r in range(dryrun.N_PROCS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def _dist_launches(results: list, key: str, needed: tuple) -> dict:
+    """Each worker's launches in its timed run, by the kernels' row names;
+    fails if a worker did not launch a kernel of `needed`."""
+    names = {"winograd": "winograd_conv3x3", "segsum": "segment_sum",
+             "clahe_kernel": "clahe_cells", "cc": "cc_tile_labels"}
+    per = [{names[k]: v for k, v in r[key]["launches"].items()} for r in results]
+    for r, launches in enumerate(per):
+        missing = [k for k in needed if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"[14] worker {r} did not launch {missing} ({key})")
+    return {k: sum(p[k] for p in per) for k in per[0]}
+
+
+def phase_dist(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens, tmp_root: str,
+               phase3=None) -> dict:
+    """Phase 14 (see the module docstring); returns each kernel's launches
+    in the workers' timed runs, summed over the workers, and the runs'
+    numbers."""
+    from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params
+    from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
+    from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
+
+    dryrun = _script("dryrun_dist_torch")
+    if phase3 is None:
+        model, params = load_scoring_params(device=dev)
+        phase3 = score_frames_fused(model, params, segs, greens,
+                                    StarDistBackend(unet_vars, seg_cfg, device=dev),
+                                    chunk=32, caps=(64, 96), **stage_a)
+        log("[14] phase 3 not run: its single-process result was made here")
+    frames = os.path.join(tmp_root, "dist_frames.npz")
+    np.savez(frames, segs=segs.cpu().numpy(), greens=greens.cpu().numpy())
+    smi = smi_line()
+    out = {}
+    # StarDist: phase 3's 16 frames, each process its 8 over its own shards
+    sd_dir = os.path.join(tmp_root, "dist_stardist")
+    results, wall = _dist_run(dryrun, sd_dir, ["--stardist", frames])
+    got = [dryrun.read_result(os.path.join(sd_dir, f"rank{r}.npz")) for r in range(dryrun.N_PROCS)]
+    for r in range(1, dryrun.N_PROCS):
+        _assert_sharded_equal(got[0], got[r], f"[14] worker {r} against worker 0")
+    _assert_sharded_equal(phase3, got[0], f"[14] StarDist, {dryrun.N_PROCS} processes x "
+                                          f"{DIST_LOCAL_SHARDS} shards against phase 3")
+    launches = _dist_launches(results, "stardist",
+                              ("winograd_conv3x3", "segment_sum", "clahe_cells"))
+    out["stardist"] = dict(wall=wall, seconds=[r["stardist"]["seconds"] for r in results],
+                           peak_gib=[r["peak_gib"] for r in results], launches=launches,
+                           cells=results[0]["stardist"]["cells"])
+    log(f"[14] StarDist over {dryrun.N_PROCS} processes on cuda:0 (gloo): "
+        f"{results[0]['stardist']['cells']} cells, the timed run "
+        f"{', '.join(f'{s:.3f}' for s in out['stardist']['seconds'])} s a worker, the call "
+        f"{wall:.1f} s (interpreters, build check, loads and the warm-up run included), peak "
+        f"memory {', '.join(f'{g:.2f}' for g in out['stardist']['peak_gib'])} GiB a worker; "
+        f"launches {launches} [{smi}]")
+    # threshold at JAX's dryrun size, its label route (the CC kernel), the
+    # three checks of scripts/dryrun_dcn.py
+    th_dir = os.path.join(tmp_root, "dist_threshold")
+    results, wall = _dist_run(dryrun, th_dir, ["--label-route"])
+    launches_th = _dist_launches(results, "fused",
+                                 ("segment_sum", "clahe_cells", "cc_tile_labels"))
+    r0 = results[0]
+    out["threshold"] = dict(wall=wall, seconds=[r["fused"]["seconds"] for r in results],
+                            peak_gib=[r["peak_gib"] for r in results], launches=launches_th,
+                            counts=r0["counts"], score_cells=r0["score_cells"]["counts"],
+                            fused=r0["fused"]["counts"], cells=r0["fused"]["cells"])
+    log(f"[14] threshold label route over {dryrun.N_PROCS} processes on cuda:0 (gloo), the checks "
+        f"of scripts/dryrun_dcn.py: masked counts {r0['counts']}; score_cells counts "
+        f"{r0['score_cells']['counts']} (cons/mod/ens/fft of {r0['score_cells']['cells']} "
+        f"cells); score_frames_fused {r0['fused']['cells']} cells, counts "
+        f"{r0['fused']['counts']}, each equal to the worker's single-process run; the timed run "
+        f"{', '.join(f'{s:.3f}' for s in out['threshold']['seconds'])} s a worker, the call "
+        f"{wall:.1f} s, peak memory "
+        f"{', '.join(f'{g:.2f}' for g in out['threshold']['peak_gib'])} GiB a worker; launches "
+        f"{launches_th} [{smi}]")
+    out["launches"] = {k: {"stardist": launches[k], "threshold": launches_th[k]}
+                       for k in launches}
+    return out
+
+
+def _step_gaps(torch, trainer, model, batch, gen_state, aug, devices) -> tuple:
+    """One float32 step of `trainer._step` from `model`'s weights on each of
+    `devices` (card, CPU) with the same generator state: (relative loss
+    difference, the gradient's difference over its norm, each leaf's)."""
+    import copy
+
+    from cell_image_analysis_tpu_torch.config import CAEConfig
+    from cell_image_analysis_tpu_torch.parallel.mesh import virtual_mesh
+
+    losses, grads = [], []
+    for d in devices:
+        m = copy.deepcopy(model).to(d)
+        opt = trainer.make_optimizer(CAEConfig(), m.parameters())
+        opt.step = lambda: None
+        gen = torch.Generator()
+        gen.set_state(gen_state)
+        loss, _ = trainer._step(trainer._Replicas(m, virtual_mesh(d, 1)), opt, batch.to(d),
+                                gen, aug)
+        losses.append(float(loss))
+        grads.append([p.grad.detach().cpu() for p in m.parameters()])
+    (l1, l0), (g1, g0) = losses, grads
+    whole = float(torch.cat([(a - b).flatten() for a, b in zip(g1, g0)]).norm()
+                  / torch.cat([b.flatten() for b in g0]).norm())
+    leaves = [float((a - b).norm() / b.norm()) for a, b in zip(g1, g0)]
+    return abs(l1 - l0) / abs(l0), whole, leaves
+
+
+def phase_round_trip(torch, dev, unet_vars, tmp_root: str) -> dict:
+    """Phase 15 (see the module docstring)."""
+    from cell_image_analysis_tpu_torch.config import (
+        AugmentConfig,
+        CAEConfig,
+        ExtractConfig,
+        PipelineConfig,
+        SegConfig,
+        TrainConfig,
+    )
+    from cell_image_analysis_tpu_torch.models.cae import init_cae
+    from cell_image_analysis_tpu_torch.parallel.mesh import virtual_mesh
+    from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
+    from cell_image_analysis_tpu_torch.pipeline.training import ImprovedAnomalyDetectionTraining
+    from cell_image_analysis_tpu_torch.train import augment, trainer
+    from cell_image_analysis_tpu_torch.utils.synthetic import make_dataset
+
+    t_phase = time.perf_counter()
+    frames, size, n_cells, epochs = ROUND_TRIP
+    root = os.path.join(tmp_root, "round_trip")
+    folders = {"train": (frames, 0.0, 11), "wildtype": (2, 0.0, 12), "mutantA": (2, 0.7, 13)}
+    for name, (n, mutant, seed) in folders.items():
+        make_dataset(os.path.join(root, name), n_frames=n, size=size, n_cells=n_cells,
+                     mutant_fraction=mutant, seed=seed)
+    cfg = PipelineConfig(seg=SegConfig(max_candidates=256, raster_patch=96, raster_cap=128),
+                         extract=ExtractConfig(cell_capacity=128),
+                         train=TrainConfig(epochs=epochs, min_cells=30))
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = time.perf_counter()
+        out = os.path.join(root, f"model_{name}")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            tr = ImprovedAnomalyDetectionTraining(out, cfg, unet_vars, device=d)
+            cells, stats = tr.create_training_dataset(os.path.join(root, "train"))
+            model, best, history = tr.train_autoencoder(cells, figures=False)
+            mse, mae = tr.evaluate_reconstruction_quality(model, cells, figures=False)
+            tr.create_anomaly_detector(model, best, cells, mse)
+            tr.generate_final_report(stats, history, mse, mae)
+            screener = ProductionMutantScreening(out, cfg, unet_vars, device=d)
+            results, _ = screener.screen_mutant_samples(
+                {s: os.path.join(root, s) for s in ("wildtype", "mutantA")},
+                os.path.join(root, f"screen_{name}"), figures=False)
+        runs[name] = dict(cells=cells, areas=np.array([s["area"] for s in stats]),
+                          history=history.history, results=results,
+                          seconds=time.perf_counter() - t)
+    card, cpu = runs["card"], runs["cpu"]
+    # (a) extraction: phase 10's rule
+    if len(card["cells"]) != len(cpu["cells"]) or len(cpu["cells"]) < cfg.train.min_cells:
+        raise AssertionError(f"[15] {len(card['cells'])} cells extracted on the card, "
+                             f"{len(cpu['cells'])} on the CPU")
+    same = card["areas"] == cpu["areas"]
+    worst = float(np.abs(card["cells"][same] - cpu["cells"][same]).max())
+    if int((~same).sum()) > 2 or worst > TOL:
+        raise AssertionError(f"[15] extraction: {int((~same).sum())} cells of other area, the "
+                             f"rest within {worst:.3e}")
+    log(f"[15] extraction from {frames} frames of {size}^2: {len(cpu['cells'])} cells on both, "
+        f"{int((~same).sum())} of other area, the rest within {worst:.3e} (gate {TOL})")
+
+    # (b) float64 free runs over fit_cae's batches and draws, card against CPU
+    X = torch.as_tensor(cpu["cells"][..., None])
+    X_train, _ = trainer.train_test_split(X, cfg.train.val_split, cfg.train.seed)
+    bs, rng = cfg.train.batch_size, np.random.default_rng(cfg.train.seed)
+    steps = len(X_train) // bs
+    batches = [torch.as_tensor(row) for _ in range(epochs)
+               for row in rng.permutation(len(X_train))[:steps * bs].reshape(steps, bs)]
+    aug = AugmentConfig()
+
+    def free_run(d, dtype):
+        gen = torch.Generator().manual_seed(cfg.train.seed)   # fit_cae's draws
+        model = init_cae(gen).to(d, dtype)
+        model.train()
+        opt = trainer.make_optimizer(CAEConfig(), model.parameters())
+        reps, xd = trainer._Replicas(model, virtual_mesh(d, 1)), X_train.to(d, dtype)
+        losses = torch.stack([trainer._step(reps, opt, xd[i.to(d)], gen, aug)[0]
+                              for i in batches])
+        return losses.cpu().numpy(), {k: v.cpu() for k, v in model.state_dict().items()}
+
+    (l64_card, s64_card), (l64_cpu, s64_cpu) = (free_run(d, torch.float64)
+                                                for d in (dev, torch.device("cpu")))
+    rel64 = np.abs(l64_card - l64_cpu) / np.abs(l64_cpu)
+    gap64 = {k: float((s64_card[k] - s64_cpu[k]).abs().max()) for k in s64_cpu}
+    w64, worst64 = max((v, k) for k, v in gap64.items())
+    # (c) float32 single steps from the CPU run's weights, and the warp
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    model = init_cae(gen)
+    model.train()
+    opt = trainer.make_optimizer(CAEConfig(), model.parameters())
+    reps = trainer._Replicas(model, virtual_mesh("cpu", 1))
+    loss_rel, whole_rel, leaf_rel = [], [], []
+    for k, i in enumerate(batches):
+        batch, state = X_train[i], gen.get_state()
+        if k == 0:
+            probe = torch.Generator()
+            probe.set_state(state)
+            params = augment.sample_params(probe, bs, aug)
+            if not torch.equal(augment.warp_batch(batch.to(dev), params).cpu(),
+                               augment.warp_batch(batch, params)):
+                raise AssertionError("[15] the card's warp of a batch is not the CPU's")
+        lr_, wr, lv = _step_gaps(torch, trainer, model, batch, state, aug,
+                                 (dev, torch.device("cpu")))
+        loss_rel.append(lr_)
+        whole_rel.append(wr)
+        leaf_rel.append(lv)
+        trainer._step(reps, opt, batch, gen, aug)
+    leaf_rel = np.array(leaf_rel)
+    names = [n for n, _ in model.named_parameters()]
+    worst_leaf = names[int(np.argmax(leaf_rel.max(axis=0)))]
+    log(f"[15] float64 free runs over fit_cae's {len(batches)} batches and draws (augmentation "
+        f"on), card against CPU: losses within {float(rel64.max()):.3e} (relative; gate "
+        f"{F64_LOSS_GATE:.0e}), weights within {w64:.3e} (gate {F64_WEIGHT_GATE:.0e}, largest "
+        f"at {worst64}); a batch warped on the card equals the CPU's bit for bit")
+    log(f"[15] float32, each of the {len(batches)} steps from the CPU run's weights: loss within "
+        f"{max(loss_rel):.3e} (gate {STEP_LOSS_GATE:.0e}), the gradient within "
+        f"{max(whole_rel):.3e} of its norm (gate {STEP_GRAD_GATE:.0e}), each leaf's within "
+        f"{float(leaf_rel.max()):.3e} (gate {STEP_LEAF_GATE:.0e}; largest at {worst_leaf})")
+    # (d) the float32 fit_cae runs of the round trip
+    hc, hp = card["history"], cpu["history"]
+    log(f"[15] fit_cae, {epochs} epochs on {len(cpu['cells'])} cells: card val_loss "
+        f"{[round(v, 6) for v in hc['val_loss']]} lr {hc['lr']}; CPU val_loss "
+        f"{[round(v, 6) for v in hp['val_loss']]} lr {hp['lr']}")
+    # the stores' screening, printed side by side (not gated)
+    for s in ("wildtype", "mutantA"):
+        rc, rp = card["results"][s], cpu["results"][s]
+        log(f"[15] {s}: {rc['total_cells']} / {rp['total_cells']} cells (card / CPU store); "
+            "rates " + ", ".join(f"{k} {rc[f'{k}_anomaly_rate']:.4f} / "
+                                 f"{rp[f'{k}_anomaly_rate']:.4f}"
+                                 for k in ("conservative", "moderate", "ensemble", "fft")))
+    seconds = time.perf_counter() - t_phase
+    log(f"[15] round trip: card {card['seconds']:.1f} s, CPU {cpu['seconds']:.1f} s, the "
+        f"phase {seconds:.1f} s [{smi_line()}]")
+    failed = [what for what, ok in (
+        ("float64 losses", float(rel64.max()) <= F64_LOSS_GATE),
+        ("float64 weights", w64 <= F64_WEIGHT_GATE),
+        ("step losses", max(loss_rel) <= STEP_LOSS_GATE),
+        ("step gradients", max(whole_rel) <= STEP_GRAD_GATE),
+        ("step leaves", float(leaf_rel.max()) <= STEP_LEAF_GATE),
+        ("epochs run", len(hc["loss"]) == len(hp["loss"])),
+        ("lr history", hc["lr"] == hp["lr"])) if not ok]
+    if failed:
+        raise AssertionError(f"[15] the card's training left the CPU's: {failed}; card history "
+                             f"{hc}; CPU history {hp}")
+    return dict(cells=len(cpu["cells"]), steps=len(batches), f64=(float(rel64.max()), w64),
+                step_loss=max(loss_rel), step_grad=max(whole_rel),
+                step_leaf=float(leaf_rel.max()), seconds=seconds,
+                epochs=(len(hc["loss"]), len(hp["loss"])))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(str(p) for p in sorted(ALL_PHASES)),
@@ -2406,7 +2746,7 @@ def main() -> int:
             phase_build()
             mark("1")
         segs = greens = main_a = frames_sha = None
-        if phases & {2, 3, 5, 6, 12}:
+        if phases & {2, 3, 5, 6, 12, 14}:
             segs, greens, frames_sha = make_frames(torch, dev)
         if phases & {2, 3}:
             from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
@@ -2445,7 +2785,7 @@ def main() -> int:
             mark("6")
         phase3 = (main_result, frames_sha) if main_result is not None else None
         del main_a, main_result
-        if 12 not in phases:
+        if not phases & {12, 14}:
             del segs, greens
         torch.cuda.empty_cache()
         screening_launches = {}
@@ -2478,6 +2818,11 @@ def main() -> int:
             mesh = phase_mesh(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens,
                               params_model, tmp_root, train_cells)
             mark("12")
+        dist = {}
+        if 14 in phases:
+            dist = phase_dist(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens, tmp_root,
+                              phase3[0] if phase3 is not None else None)
+            mark("14")
         bench = {}
         if 13 in phases:
             segs = greens = params_model = None   # the card's memory for the bench
@@ -2487,6 +2832,9 @@ def main() -> int:
                 f"waited {time.perf_counter() - t0:.1f} s more for them")
             bench = phase_bench(torch, dev, bench_frames, phase3)
             mark("13")
+        if 15 in phases:
+            phase_round_trip(torch, dev, unet_vars, tmp_root)
+            mark("15")
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -2520,7 +2868,9 @@ def main() -> int:
     # gradient; the Winograd row also gets the step's numbers);
     # `mesh_launches`: wrapper calls on each route of phase 12 (a_*: the 16
     # frames sharded, b/c: the 2048^2 tilers, d_*: the 4096^2 plate tiled and
-    # whole), each counted from 0; `bench_launches`: wrapper calls while
+    # whole), each counted from 0; `dist_launches`: wrapper calls in the
+    # timed runs of phase 14's workers, summed over them (StarDist, and the
+    # threshold label route); `bench_launches`: wrapper calls while
     # phase 13's run_bench ran each backend (two warm-ups of batch 0, two
     # timed runs of 3 batches), `bench_batch_launches`: in one held bench
     # batch of 16 frames, each counted from 0; `tile_*`: CC and Winograd at the shape of
@@ -2535,6 +2885,7 @@ def main() -> int:
                  training_launches=training_launches[name],
                  unet_training_launches=unet_training[name],
                  mesh_launches=mesh["launches"][name],
+                 dist_launches=dist["launches"][name],
                  bench_launches={b: n[name] for b, n in bench["launches"].items()},
                  bench_batch_launches={b: n[name] for b, n in bench["batch_launches"].items()},
                  **kernels[name])

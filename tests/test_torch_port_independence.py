@@ -6,14 +6,17 @@
   `scripts/profile_torch_training.py`, `scripts/profile_torch_unet_training.py`,
   `scripts/make_unet_weights_torch.py`, `scripts/port_stardist_h5_torch.py`,
   `scripts/clahe_bands.py`, `scripts/cc_split.py`, `scripts/cc_ablate.py`,
-  `scripts/probe_torch_profiler.py`, `scripts/probe_bench_order.py` or
+  `scripts/probe_torch_profiler.py`, `scripts/probe_bench_order.py`,
+  `scripts/dryrun_dist_torch.py`, `scripts/probe_cae_draws.py`,
+  `scripts/probe_plate_cells.py`, `scripts/probe_mesh_f64.py` or
   `bench_torch.py`, imports `jax`, `sklearn`, `pandas` or anything of the JAX package (an AST
   scan, one case a file; `io/keras_interop.py` reads sklearn pickles, whose
   classes the unpickler imports by name); the port's C++ sources include
   only standard headers and name no file of the JAX package.
 - The port's `SegConfig` has the JAX defaults, field for field, and leaves
   out only the JAX package's TPU knobs; its other config classes have the
-  JAX package's fields and defaults, `PipelineConfig` all but `sharding`;
+  JAX package's fields and defaults, `PipelineConfig` all of them,
+  `sharding` included;
   the artifact names and the output-file lists are equal.
 - The port's synthetic frames are byte-equal to the JAX package's.
 - The entry points that own tensors put them on the card by default, and
@@ -46,7 +49,11 @@ _PORT_FILES = sorted(
        os.path.join("scripts", "clahe_bands.py"), os.path.join("scripts", "cc_split.py"),
        os.path.join("scripts", "cc_ablate.py"),
        os.path.join("scripts", "probe_torch_profiler.py"),
-       os.path.join("scripts", "probe_bench_order.py"), "bench_torch.py"])
+       os.path.join("scripts", "probe_bench_order.py"), "bench_torch.py",
+       os.path.join("scripts", "dryrun_dist_torch.py"),
+       os.path.join("scripts", "probe_cae_draws.py"),
+       os.path.join("scripts", "probe_plate_cells.py"),
+       os.path.join("scripts", "probe_mesh_f64.py")])
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "pandas", "cell_image_analysis_tpu")
 _CPP_FILES = sorted(os.path.relpath(p, _REPO) for p in glob.glob(
     os.path.join(_REPO, "cell_image_analysis_tpu_torch", "native", "*.cpp")))
@@ -96,7 +103,7 @@ def test_the_scan_covers_the_port():
         assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
     for name in ("train/unet_trainer.py", "io/keras_interop.py", "utils/port_weights.py",
                  "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
-                 "parallel/tiling.py"):
+                 "parallel/tiling.py", "parallel/distributed.py"):
         assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
     assert _CPP_FILES == ["cell_image_analysis_tpu_torch/native/svm_smo.cpp",
                           "cell_image_analysis_tpu_torch/native/tiff_codec.cpp"]
@@ -105,6 +112,9 @@ def test_the_scan_covers_the_port():
                  "ops/oracle/stardist_np.py"):
         assert f"cell_image_analysis_tpu_torch/{name}" in _PORT_FILES
     assert "bench_torch.py" in _PORT_FILES
+    for name in ("dryrun_dist_torch.py", "probe_cae_draws.py", "probe_plate_cells.py",
+                 "probe_mesh_f64.py"):
+        assert os.path.join("scripts", name) in _PORT_FILES
     tree = ast.parse("import jax.numpy as jnp\nfrom cell_image_analysis_tpu.config import X\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "cell_image_analysis_tpu.config"]
 
@@ -135,7 +145,8 @@ def test_seg_config_leaves_out_only_the_tpu_knobs():
 
 
 _CONFIG_CLASSES = ("QCConfig", "CLAHEConfig", "ExtractConfig", "CAEConfig", "AugmentConfig",
-                   "TrainConfig", "DetectorConfig", "FFTConfig", "EnsembleConfig", "TriageConfig")
+                   "TrainConfig", "DetectorConfig", "FFTConfig", "EnsembleConfig", "TriageConfig",
+                   "ShardingConfig")
 
 
 @pytest.mark.parametrize("name", _CONFIG_CLASSES)
@@ -151,15 +162,18 @@ def test_config_class_equals_jax_field_for_field(name):
         setattr(port(), dataclasses.fields(port)[0].name, 0)
 
 
-def test_pipeline_config_equals_jax_but_for_sharding():
+def test_pipeline_config_equals_jax():
     from cell_image_analysis_tpu.config import PipelineConfig as JaxPipelineConfig
     from cell_image_analysis_tpu_torch import config
 
     port = [f.name for f in dataclasses.fields(config.PipelineConfig)]
     ref = [f.name for f in dataclasses.fields(JaxPipelineConfig)]
-    assert port == [n for n in ref if n != "sharding"]
+    assert port == ref
+    assert [f.type for f in dataclasses.fields(config.PipelineConfig)] == [
+        f.type for f in dataclasses.fields(JaxPipelineConfig)]
     got, want = dataclasses.asdict(config.PipelineConfig()), dataclasses.asdict(JaxPipelineConfig())
-    del want["sharding"]
+    assert got["sharding"] == want["sharding"]
+    assert type(config.PipelineConfig().sharding) is config.ShardingConfig
     want["seg"] = {k: v for k, v in want["seg"].items() if k not in _TPU_KNOBS}
     assert got == want
     assert type(config.PipelineConfig().seg) is config.SegConfig

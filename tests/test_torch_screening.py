@@ -195,7 +195,9 @@ def test_threshold_screener_files_and_schema(threshold_runs):
     env = snap["environment"]
     assert "argv" in env and "python" in env and "torch" in env and "jax" not in env
     assert snap["qc"]["min_area"] == 200 and "samples" in snap["run"]
-    assert "sharding" not in snap
+    with open(os.path.join(out_j, "run_parameters.json")) as f:
+        snap_j = json.load(f)
+    assert snap["sharding"] == snap_j["sharding"]      # the config's, field for field
     # column for column, the JAX package's files
     for name, kw in (("screening_summary.csv", dict(index_col=0)),
                      ("detailed_cell_results.csv", {})):

@@ -1,7 +1,9 @@
 """PyTorch port: the mesh (`parallel.mesh`, `parallel.sharding`) and the
 sharded scoring paths, on `virtual_mesh("cpu", 4)`.
 
-- `make_mesh` raises without a GPU; a virtual mesh's shape and devices;
+- `make_mesh` and `make_mesh_2d` raise without a GPU; a virtual mesh's
+  shape and devices; `virtual_mesh_2d`'s shape, axes and device grid equal
+  JAX `make_mesh_2d`'s on 4 of its virtual CPU devices;
   `replicate` shares one copy a device, and the home copy is the object
   itself; `shard_batch` / `pad_to_multiple` zero-pad to a multiple;
   `masked_anomaly_rate` sums its counts over the shards;
@@ -30,7 +32,12 @@ from torch_port_helpers import jax_scoring, torch_threads
 from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params
 from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
 from cell_image_analysis_tpu_torch.parallel import mesh as mesh_mod
-from cell_image_analysis_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
+from cell_image_analysis_tpu_torch.parallel.mesh import (
+    make_mesh,
+    make_mesh_2d,
+    virtual_mesh,
+    virtual_mesh_2d,
+)
 from cell_image_analysis_tpu_torch.parallel.sharding import (
     Replicated,
     masked_anomaly_rate,
@@ -70,6 +77,29 @@ def test_make_mesh_raises_without_a_gpu(monkeypatch):
         make_mesh(2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         virtual_mesh("cuda", 2)
+
+
+def test_make_mesh_2d_raises_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh_2d((2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        virtual_mesh_2d("cuda", (2, 2))
+
+
+@pytest.mark.parametrize("shape, axes", [((2, 2), ("data", "model")), ((4, 1), ("x", "y")),
+                                         ((1, 4), ("data", "model"))])
+def test_make_mesh_2d_matches_jax(shape, axes):
+    from cell_image_analysis_tpu.parallel.mesh import make_mesh_2d as jax_mesh_2d
+
+    ref = jax_mesh_2d(shape, axes)
+    got = virtual_mesh_2d("cpu", shape, axes)
+    assert got.shape == dict(ref.shape) and list(got.shape) == list(ref.shape)
+    assert got.axis_names == tuple(ref.axis_names)
+    assert got.devices.shape == ref.devices.shape == shape
+    assert all(d == torch.device("cpu") for d in got.devices.flat)
+    with pytest.raises(ValueError):
+        virtual_mesh_2d("cpu", shape, axes[:1])
 
 
 def test_virtual_mesh_and_replicate(scoring):
