@@ -81,6 +81,30 @@ class SegConfig:
     threshold_percentile: float = 90.0
 
 
+# Capacities are tuned for frames up to 1024^2; a larger frame scales them.
+# The screener, its plate tiler and the bench's plate rows share this rule.
+def capacity_scale(h: int, w: int) -> int:
+    """Frame-area multiple of the 1024^2 tuning (>= 1): cell, label and
+    candidate capacities grow by it."""
+    return max(1, -(-(h * w) // (1024 * 1024)))
+
+
+def row_scale(w: int) -> int:
+    """Row-width multiple of 1024 (>= 1): the runs-per-row cap grows by
+    it, since a row's runs grow with its width."""
+    return max(1, w // 1024)
+
+
+def scaled_seg_config(cfg: SegConfig, scale: int) -> SegConfig:
+    """`cfg` with K, the raster cap (K where unset) and the NMS pair budget
+    times `scale` (`capacity_scale`)."""
+    if scale == 1:
+        return cfg
+    return dataclasses.replace(cfg, max_candidates=cfg.max_candidates * scale,
+                               raster_cap=(cfg.raster_cap or cfg.max_candidates) * scale,
+                               nms_max_pairs=cfg.nms_max_pairs * scale)
+
+
 @dataclass(frozen=True)
 class CAEConfig:
     """Convolutional autoencoder: 64x64x1 -> 8x8x32 latent -> 64x64x1."""

@@ -6,7 +6,8 @@ pools, nearest-2x upsampling with skip concatenation, a 3x3 conv head, and
 1x1 prob/dist heads at grid (2, 2)), returning `(prob, feat)` as
 `unet_apply_late` does; `dist_head_rows` applies the 32-ray head to
 gathered feature rows only; `forward_train` returns the full-map heads
-`(prob, dist)` as flax's `__call__` does, for training.  Activations are
+`(prob, dist)` as flax's `__call__` does, for training, and `unet_forward`
+is the same without autograd, JAX's inference forward.  Activations are
 NHWC throughout, and every 3x3 conv (Conv_0..Conv_12) goes through
 `ops.winograd.winograd_conv3x3`, i.e. the Winograd CUDA kernel on the GPU,
 with a gradient (`WinogradConv3x3Fn`) when grad mode is on: the inference
@@ -124,6 +125,14 @@ class StarDistUNet(nn.Module):
         -> (K, n_rays), softplus in the logaddexp(x, 0) form of JAX."""
         z = self.convs[f"Conv_{self._head + 2}"](feat_rows)
         return torch.logaddexp(z, torch.zeros_like(z))
+
+
+def unet_forward(model: StarDistUNet, x: torch.Tensor) -> tuple:
+    """The inference forward over the full maps, as JAX's `unet_forward`:
+    x (B, H, W, 1) -> (prob (B, H/2, W/2), dist (B, H/2, W/2, n_rays)),
+    without autograd (`forward_train`'s heads)."""
+    with torch.no_grad():
+        return model.forward_train(x)
 
 
 def init_unet(seed: int, device=None, **arch) -> StarDistUNet:

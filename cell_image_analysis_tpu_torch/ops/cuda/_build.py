@@ -166,6 +166,14 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def c_ints(what: str, **values: int) -> None:
+    """Raises where a value for a C `int` argument of a kernel's entry
+    point lies outside int32: ctypes would wrap it silently."""
+    bad = {k: v for k, v in values.items() if not -2 ** 31 <= int(v) < 2 ** 31}
+    if bad:
+        raise ValueError(f"{what}: {bad} outside the kernel's 32-bit int arguments")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")

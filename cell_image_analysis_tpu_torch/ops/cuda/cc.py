@@ -6,7 +6,7 @@ import itertools
 
 import torch
 
-from cell_image_analysis_tpu_torch.ops.cuda._build import check, library, stream_ptr
+from cell_image_analysis_tpu_torch.ops.cuda._build import c_ints, check, library, stream_ptr
 
 # wrapper calls since the last reset (read by chip_smoke.py)
 LAUNCHES = 0
@@ -34,6 +34,7 @@ def label_components_cuda(mask: torch.Tensor, connectivity: int = 1):
     B, h, w = mask.shape
     if h * w >= 2 ** 31:
         raise ValueError("label_components_cuda: a frame must have fewer than 2^31 pixels")
+    c_ints(f"label_components_cuda {tuple(mask.shape)}", B=B)
     labels = torch.empty((B, h, w), dtype=torch.int32, device=mask.device)
     if mask.numel() == 0:
         return labels, torch.zeros((B,), dtype=torch.int32, device=mask.device)

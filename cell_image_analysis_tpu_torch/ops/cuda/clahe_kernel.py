@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from cell_image_analysis_tpu_torch.ops.cuda._build import check, library, stream_ptr
+from cell_image_analysis_tpu_torch.ops.cuda._build import c_ints, check, library, stream_ptr
 
 LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
 MAX_NS_CAP = 16  # 16 x 16 tiles of 16-bit counts: 128 KB, within a block's 227 KB
@@ -49,11 +49,14 @@ def clahe_cells_cuda(crops: torch.Tensor, ids: torch.Tensor, heights: torch.Tens
         raise ValueError(f"clahe_cells_cuda: crop capacity {cap} too large for the exact blend")
     ids, heights, widths = ids.contiguous(), heights.contiguous(), widths.contiguous()
     C = ids.shape[0]
+    bands = default_bands(C, crops.device)
+    # crop and output offsets are size_t in the kernel; its grid is C x bands blocks
+    c_ints(f"clahe_cells_cuda {tuple(crops.shape)}, {C} cells", N=N, blocks=C * bands)
     out = torch.empty((C, cap, cap), dtype=torch.float32, device=crops.device)
     with torch.cuda.device(crops.device):
         err = library().cia_clahe_cells(
             crops.data_ptr(), full_cap, N, ids.data_ptr(), C, heights.data_ptr(),
-            widths.data_ptr(), cap, ns_cap, clip_limit, grid, default_bands(C, crops.device),
+            widths.data_ptr(), cap, ns_cap, clip_limit, grid, bands,
             out.data_ptr(), stream_ptr(crops.device))
     check(err, "clahe_cells")
     LAUNCHES += 1

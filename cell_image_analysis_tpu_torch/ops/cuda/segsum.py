@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from cell_image_analysis_tpu_torch.ops.cuda._build import check, library, stream_ptr
+from cell_image_analysis_tpu_torch.ops.cuda._build import c_ints, check, library, stream_ptr
 
 LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
 
@@ -20,6 +20,8 @@ def segment_sums_cuda(seg: torch.Tensor, data: torch.Tensor, n_seg: int) -> torc
     P, F = data.shape
     if seg.shape != (P,):
         raise ValueError(f"segment_sums_cuda: seg {tuple(seg.shape)} vs data {tuple(data.shape)}")
+    # the rows' count and offsets are 64-bit in the kernel; F and n_seg are not
+    c_ints(f"segment_sums_cuda {tuple(data.shape)} -> {n_seg}", F=F, n_seg=n_seg)
     seg, data = seg.contiguous(), data.contiguous()
     out = torch.zeros((n_seg, F), dtype=torch.int64, device=data.device)
     with torch.cuda.device(data.device):

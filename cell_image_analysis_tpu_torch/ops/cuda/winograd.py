@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from cell_image_analysis_tpu_torch.ops.cuda._build import check, library, stream_ptr
+from cell_image_analysis_tpu_torch.ops.cuda._build import c_ints, check, library, stream_ptr
 from cell_image_analysis_tpu_torch.ops.winograd import CI_ALIGN, CO_BLOCK
 
 LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
@@ -36,6 +36,8 @@ def winograd_conv3x3_cuda(x: torch.Tensor, U_hi: torch.Tensor, U_lo: torch.Tenso
                          f"{u_shape} / ({Co},)")
     if B > 65535:
         raise ValueError("winograd_conv3x3_cuda: batch above 65535")
+    # the kernel forms its offsets in size_t: only the arguments are 32-bit
+    c_ints(f"winograd_conv3x3_cuda {tuple(x.shape)} -> {Co}", H=H, W=W, Ci=Ci, Co=Co)
     x, U_hi, U_lo, bias = (t.contiguous() for t in ts)
     if any(t.data_ptr() % 16 for t in (x, U_hi, U_lo)):
         raise ValueError("winograd_conv3x3_cuda: x, U_hi and U_lo must be 16-byte aligned")

@@ -22,6 +22,9 @@ screening path (`pipeline.scoring`) and the two host-facing forms share:
 
 - `extract_cells_chunked`: one frame's label map through the pixel
   regionprops, then stage B; the preprocessed cells come back as numpy;
+- `extract_cells`: the same, in JAX's single-frame layout
+  (`ExtractedCells`: slot i holds the i-th geometry-passing label, valid
+  or not, on the device);
 - `extract_cells_frames`: a batch of frames through a segment_fn and stage
   A, re-run through `fallback_segment_fn` (the exact twin) when a capacity
   flag fires, then stage B over the pooled cells of all frames; the cells
@@ -58,6 +61,8 @@ class Candidates(NamedTuple):
     mean_intensity: torch.Tensor
     std_intensity: torch.Tensor
     n_valid: torch.Tensor         # (B,) int32
+    n_geometry: torch.Tensor      # (B,) int32 geometry-passing labels; at or above
+                                  # cell_capacity the selection kept the first C
 
 
 def gather_crops(green: torch.Tensor, minr: torch.Tensor, minc: torch.Tensor, ch: torch.Tensor,
@@ -85,13 +90,28 @@ def gather_crops(green: torch.Tensor, minr: torch.Tensor, minc: torch.Tensor, ch
     return crops, mean, std
 
 
-def _candidates_from_props(props, green: torch.Tensor, label_capacity: int,
-                           cell_capacity: int, crop_capacity: int, border_margin: int,
-                           min_area: int, max_area: int, max_eccentricity: float,
-                           min_mean_intensity: float, min_std_intensity: float) -> Candidates:
+class _Selected(NamedTuple):
+    """The first `cell_capacity` geometry-passing labels of each frame in
+    ascending order, before the repacking; all (B, C) but crops."""
+
+    sel: torch.Tensor       # label index - 1, clamped into [0, label_capacity)
+    cand: torch.Tensor      # a label there whose bbox fits the crop capacity
+    valid: torch.Tensor     # cand and the intensity gates
+    ch: torch.Tensor        # bbox sides, clamped into [1, crop_capacity]
+    cw: torch.Tensor
+    crops: torch.Tensor     # (B, C, cap, cap)
+    mean: torch.Tensor
+    std: torch.Tensor
+    n_geometry: torch.Tensor  # (B,) geometry-passing labels before the selection
+
+
+def _select(props, green: torch.Tensor, label_capacity: int, cell_capacity: int,
+            crop_capacity: int, border_margin: int, min_area: int, max_area: int,
+            max_eccentricity: float, min_mean_intensity: float,
+            min_std_intensity: float) -> _Selected:
+    """Geometric QC, the capacity-bounded selection, the crop gather and
+    the intensity QC of float32 frames green (B, H, W)."""
     B, h, w = green.shape
-    dev = green.device
-    green = green.float()
     geo = qc_mask(props, h, w, border_margin=border_margin, min_area=min_area,
                   max_area=max_area, max_eccentricity=max_eccentricity)
     sel = nonzero_static(geo, cell_capacity, label_capacity)
@@ -107,23 +127,36 @@ def _candidates_from_props(props, green: torch.Tensor, label_capacity: int,
 
     crops, mean, std = gather_crops(green, minr, minc, ch, cw, crop_capacity)
     valid = cand & (mean >= min_mean_intensity) & (std >= min_std_intensity)
+    return _Selected(sel=sel_c, cand=cand, valid=valid, ch=ch, cw=cw, crops=crops, mean=mean,
+                     std=std, n_geometry=geo.sum(dim=1).int())
 
+
+def _candidates_from_props(props, green: torch.Tensor, label_capacity: int,
+                           cell_capacity: int, crop_capacity: int, border_margin: int,
+                           min_area: int, max_area: int, max_eccentricity: float,
+                           min_mean_intensity: float, min_std_intensity: float) -> Candidates:
+    s = _select(props, green.float(), label_capacity=label_capacity,
+                cell_capacity=cell_capacity, crop_capacity=crop_capacity,
+                border_margin=border_margin, min_area=min_area, max_area=max_area,
+                max_eccentricity=max_eccentricity, min_mean_intensity=min_mean_intensity,
+                min_std_intensity=min_std_intensity)
     # repack the valid cells to the front (stable: ascending label order)
-    order = nonzero_static(valid, cell_capacity, cell_capacity)
+    order = nonzero_static(s.valid, cell_capacity, cell_capacity)
     ok = order < cell_capacity
     o = torch.clamp(order, max=cell_capacity - 1)
-    zf = torch.zeros_like(mean)
+    zf = torch.zeros_like(s.mean)
     return Candidates(
-        crops=gather_rows(crops, o),
-        heights=torch.where(ok, gather_rows(ch, o), 1),
-        widths=torch.where(ok, gather_rows(cw, o), 1),
+        crops=gather_rows(s.crops, o),
+        heights=torch.where(ok, gather_rows(s.ch, o), 1),
+        widths=torch.where(ok, gather_rows(s.cw, o), 1),
         valid=ok,
-        label_ids=torch.where(ok, gather_rows(sel_c, o) + 1, 0).int(),
-        area=torch.where(ok, gather_rows(gather_rows(props.area, sel_c), o), 0),
-        eccentricity=torch.where(ok, gather_rows(gather_rows(props.eccentricity, sel_c), o), zf),
-        mean_intensity=torch.where(ok, gather_rows(mean, o), zf),
-        std_intensity=torch.where(ok, gather_rows(std, o), zf),
-        n_valid=valid.sum(dim=1).int(),
+        label_ids=torch.where(ok, gather_rows(s.sel, o) + 1, 0).int(),
+        area=torch.where(ok, gather_rows(gather_rows(props.area, s.sel), o), 0),
+        eccentricity=torch.where(ok, gather_rows(gather_rows(props.eccentricity, s.sel), o), zf),
+        mean_intensity=torch.where(ok, gather_rows(s.mean, o), zf),
+        std_intensity=torch.where(ok, gather_rows(s.std, o), zf),
+        n_valid=s.valid.sum(dim=1).int(),
+        n_geometry=s.n_geometry,
     )
 
 
@@ -250,6 +283,54 @@ def extract_cells_chunked(labels: torch.Tensor, green: torch.Tensor, chunk: int 
                                      out_size=out_size, clip_limit=clip_limit):
         cells[ids] = c
     return cells.cpu().numpy(), stats
+
+
+class ExtractedCells(NamedTuple):
+    """`extract_cells`' slots: the i-th geometry-passing label in slot i;
+    all (C,) but cells, zero in a slot that is not valid."""
+
+    cells: torch.Tensor           # (C, out, out) float32 in [0, 1]
+    valid: torch.Tensor           # (C,) bool: passed geometry and intensity QC
+    label_ids: torch.Tensor       # (C,) int32 label (1-based); 0 if not valid
+    area: torch.Tensor            # (C,) int32
+    eccentricity: torch.Tensor    # (C,) float32
+    mean_intensity: torch.Tensor  # (C,) float32: raw bbox-crop mean
+    std_intensity: torch.Tensor   # (C,) float32: raw bbox-crop std (ddof 0)
+    n_candidates: torch.Tensor    # () int32: geometry-passing labels that fit the crop
+
+
+@torch.inference_mode()
+def extract_cells(labels: torch.Tensor, green: torch.Tensor, label_capacity: int = 1024,
+                  cell_capacity: int = 512, crop_capacity: int = 192, out_size: int = 64,
+                  border_margin: int = 10, min_area: int = 200, max_area: int = 8000,
+                  max_eccentricity: float = 0.95, min_mean_intensity: float = 0.5,
+                  min_std_intensity: float = 0.1, fg_fraction: float = 0.25) -> ExtractedCells:
+    """One frame's label map (H, W) and raw green channel (H, W) -> its
+    cells in JAX's single-frame layout (`ExtractedCells`), on their
+    device: the pixel regionprops, stage A's selection (not repacked) and
+    stage B (`preprocess_buckets`) over the valid slots."""
+    props = regionprops(labels[None], capacity=label_capacity, fg_fraction=fg_fraction)
+    s = _select(props, green[None].float(), label_capacity=label_capacity,
+                cell_capacity=cell_capacity, crop_capacity=crop_capacity,
+                border_margin=border_margin, min_area=min_area, max_area=max_area,
+                max_eccentricity=max_eccentricity, min_mean_intensity=min_mean_intensity,
+                min_std_intensity=min_std_intensity)
+    valid, sel = s.valid[0], s.sel[0]
+    heights, widths = s.ch[0].int(), s.cw[0].int()
+    cells = torch.zeros((cell_capacity, out_size, out_size), dtype=torch.float32,
+                        device=green.device)
+    for ids, c in preprocess_buckets(s.crops[0].contiguous(), heights, widths, heights.cpu(),
+                                     widths.cpu(), valid.cpu(), out_size=out_size):
+        cells[ids] = c
+    zf = torch.zeros_like(s.mean[0])
+    return ExtractedCells(
+        cells=cells, valid=valid,
+        label_ids=torch.where(valid, sel + 1, 0).int(),
+        area=torch.where(valid, props.area[0][sel], 0),
+        eccentricity=torch.where(valid, props.eccentricity[0][sel], zf),
+        mean_intensity=torch.where(valid, s.mean[0], zf),
+        std_intensity=torch.where(valid, s.std[0], zf),
+        n_candidates=s.cand[0].sum().int())
 
 
 @torch.inference_mode()

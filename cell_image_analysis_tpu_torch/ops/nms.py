@@ -1,7 +1,8 @@
 """Star-polygon non-maximum suppression (exact greedy fixpoint).
 
-Counterpart of `cell_image_analysis_tpu/ops/nms.py`: the sparse
-candidate-pair overlap (`overlap_matrix_sparse`: pairs whose center
+Counterpart of `cell_image_analysis_tpu/ops/nms.py`: the polygons'
+vertices and areas, the dense K x K overlap (`overlap_matrix`, for
+callers and tests), the sparse candidate-pair overlap (`overlap_matrix_sparse`: pairs whose center
 distance is below the sum of their max radii, the `max_pairs` closest
 kept, each integrated on a 24 x 8 polar quadrature over the smaller
 polygon) and `star_nms`, the fixpoint whose result is exactly the greedy
@@ -36,6 +37,16 @@ def _remainder(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """jnp.remainder for a positive modulus: fmod, then + m where negative."""
     r = torch.fmod(x, m)
     return torch.where((r != 0) & (r < 0), r + m, r)
+
+
+def polygon_vertices(centers: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
+    """Centers (..., K, 2) and radii (..., K, R) -> vertices (..., K, R, 2)
+    (row, column), ray k at angle 2 pi k / R."""
+    R = dists.shape[-1]
+    phi = torch.arange(R, dtype=torch.float32, device=dists.device) * _f32(_TWO_PI / R, dists)
+    dy = dists * torch.sin(phi)
+    dx = dists * torch.cos(phi)
+    return torch.stack([centers[..., 0:1] + dy, centers[..., 1:2] + dx], dim=-1)
 
 
 def polygon_areas(dists: torch.Tensor) -> torch.Tensor:
@@ -87,6 +98,34 @@ def _quadrature(dists_i: torch.Tensor, centers_i: torch.Tensor):
     w = 0.5 * rb * rb * _f32(_TWO_PI / A, rb) / F
     w = w[..., :, None].expand(*rb.shape, F).reshape(*rb.shape[:-1], A * F)
     return pts, w
+
+
+def overlap_matrix(centers: torch.Tensor, dists: torch.Tensor, metric: str = "iou",
+                   chunk: int = 32) -> torch.Tensor:
+    """The dense (K, K) pairwise overlap of polygons (K, 2), (K, R), or
+    (B, K, K) of (B, K, 2), (B, K, R): O[i, j] integrates polygon i's
+    quadrature against polygon j (so it is near-symmetric), diagonal zero;
+    `chunk` rows of i at a time.  For callers and tests: screening runs
+    `overlap_matrix_sparse`, whose entry for a pair is this one's with i
+    the smaller polygon, bit for bit."""
+    single = centers.dim() == 2
+    c, d = (centers[None], dists[None]) if single else (centers, dists)
+    B, K = c.shape[:2]
+    areas = polygon_areas(d)                                    # (B, K)
+    inter = torch.empty((B, K, K), dtype=torch.float32, device=c.device)
+    for i0 in range(0, K, chunk):
+        pts, w = _quadrature(d[:, i0:i0 + chunk], c[:, i0:i0 + chunk])   # (B, C, S, 2)
+        dy = pts[:, :, None, :, 0] - c[:, None, :, 0, None]    # (B, C, K, S)
+        dx = pts[:, :, None, :, 1] - c[:, None, :, 1, None]
+        rho = torch.sqrt(dy * dy + dx * dx)
+        rb = radius_at(d[:, None, :, None, :], torch.atan2(dy, dx))
+        inter[:, i0:i0 + chunk] = torch.sum(w[:, :, None, :] * (rho <= rb), dim=-1)
+    a_i, a_j = areas[:, :, None], areas[:, None, :]
+    inter = torch.minimum(inter, torch.minimum(a_i, a_j))
+    denom = torch.minimum(a_i, a_j) if metric == "ios" else a_i + a_j - inter
+    O = inter / torch.clamp(denom, min=1e-12)
+    O = O * (1.0 - torch.eye(K, dtype=O.dtype, device=O.device))
+    return O[0] if single else O
 
 
 def overlap_matrix_sparse(centers: torch.Tensor, dists: torch.Tensor, valid: torch.Tensor,

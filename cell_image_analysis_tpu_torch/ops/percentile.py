@@ -7,8 +7,8 @@ uses, computed in python float64 (`percentile_ranks`), and lerps them in
 float32.  JAX selects them with a sort-free bisection; the values are the
 same.
 
-`percentile` (any q, any axis) and `median_iqr` (the RobustScaler's fit)
-sort, as JAX's do, and do JAX's rank arithmetic in float32: the index
+`percentile` (any q, any axis), `masked_percentile` (over the masked
+elements) and `median_iqr` (the RobustScaler's fit) sort, as JAX's do, and do JAX's rank arithmetic in float32: the index
 `q / 100 * (n - 1)`, its floor and ceiling, and the lerp.  XLA compiles
 JAX's lerp `lo * (1 - f) + hi * f` into a fused multiply-add of the low
 term, so the port adds the exact float64 product `lo * (1 - f)` to the
@@ -18,6 +18,8 @@ for bit (the float64 sum could round twice only where it needs more than
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -85,6 +87,20 @@ def percentile(x: torch.Tensor, q, axis: int | None = None) -> torch.Tensor:
     frac = idx - lo.float()
     if frac.dim():  # broadcast (Q,) weights over the remaining axes
         frac = frac.reshape(frac.shape + (1,) * (xs.dim() - 1))
+    return (xs[lo].double() * (1.0 - frac).double() + (xs[hi] * frac).double()).float()
+
+
+def masked_percentile(x: torch.Tensor, mask: torch.Tensor, q) -> torch.Tensor:
+    """Percentile (scalar or 1-D q) over the elements of flattened `x`
+    where `mask` is true: the others sort to the top as +inf, and the
+    length is the mask's count, as JAX's `masked_percentile` (float32 rank
+    arithmetic, the lerp as `percentile`'s)."""
+    q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
+    mf = mask.reshape(-1).bool()
+    xs = torch.sort(torch.where(mf, x.reshape(-1).float(), math.inf)).values
+    idx = q / 100.0 * torch.clamp(mf.sum().float() - 1.0, min=0.0)
+    lo, hi = torch.floor(idx).long(), torch.ceil(idx).long()
+    frac = idx - lo.float()
     return (xs[lo].double() * (1.0 - frac).double() + (xs[hi] * frac).double()).float()
 
 

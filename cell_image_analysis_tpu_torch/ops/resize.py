@@ -5,6 +5,7 @@ Counterpart of `cell_image_analysis_tpu/ops/resize.py` (skimage
 pre-filter (sigma = max(0, (s - 1) / 2), truncate 4, mirror boundary) and
 the order-1 grid-mode resample collapse into one (out, cap) operator
 built against the crop capacity, and the crop becomes `R_h @ crop @ R_w^T`.
+`resize_image` resizes a whole image the same way.
 """
 
 from __future__ import annotations
@@ -71,6 +72,16 @@ def resize_operator(n: torch.Tensor, cap: int, out_size: int) -> torch.Tensor:
     sigma = torch.clamp((s - 1.0) / 2.0, min=0.0)
     return torch.matmul(bilinear_operator(n, cap, out_size),
                         gaussian_operator(n, sigma, cap, out_size))
+
+
+def resize_image(img: torch.Tensor, out_size: int) -> torch.Tensor:
+    """A whole (H, W) image's anti-aliased resize to (out_size, out_size)
+    float32: the cells' operators at the image's own sides."""
+    h, w = img.shape
+    n = torch.tensor([h, w], dtype=torch.int32, device=img.device)
+    Rh = resize_operator(n[:1], h, out_size)[0]
+    Rw = resize_operator(n[1:], w, out_size)[0]
+    return torch.matmul(torch.matmul(Rh, img.float()), Rw.T)
 
 
 def resize_cells(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,

@@ -11,7 +11,9 @@ from closed-form per-run moments reduced per region.
   form), joined into components by neighbour-min hooks over the runs of
   adjacent rows (`cc_runs`) and numbered in scipy's raster order
   (`_component_numbers`) — the threshold backend's stage A, which never
-  materializes a label map.
+  materializes a label map;
+- `labels_from_mask`: the same components as full label maps (API and
+  tests).
 
 The six moments are integers, so the port computes them in int64 and
 reduces them with `ops.segsum.segment_sums` (the CUDA segment-sum kernel on
@@ -203,6 +205,25 @@ def _component_numbers(parent: torch.Tensor, valid: torch.Tensor):
     cnum = torch.cumsum(v & (flatp == own), dim=1)
     comp = torch.where(v, torch.gather(cnum, 1, torch.clamp(flatp, max=h * rcap - 1).long()), 0)
     return comp.reshape(B, h, rcap).int(), cnum[:, -1].int()
+
+
+def labels_from_mask(mask: torch.Tensor, rcap: int = 64, connectivity: int = 1) -> tuple:
+    """(labels int32, count int32, overflow bool) of boolean masks (H, W)
+    or (B, H, W), with a leading (B,) on count and overflow in the second
+    form: the label maps in scipy numbering by the run path, the API and
+    test counterpart of `ops.cc.label_components` (the pipeline never
+    materializes them).  A pixel takes the component of its run's rank in
+    the row's table; past `rcap` runs it takes the last slot's, as JAX."""
+    single = mask.dim() == 2
+    m = (mask[None] if single else mask).bool()
+    table = run_table(m, rcap=rcap)
+    comp, count = _component_numbers(cc_runs(table, connectivity=connectivity), table.end > 0)
+    is_start = m & ~F.pad(m, (1, 0))[..., :-1]
+    rank = torch.clamp(torch.cumsum(is_start.int(), dim=-1) - 1, 0, rcap - 1)
+    labels = torch.where(m, torch.gather(comp, 2, rank), 0).int()
+    if single:
+        return labels[0], count[0], table.overflow[0]
+    return labels, count, table.overflow
 
 
 def regionprops_from_mask(mask: torch.Tensor, capacity: int, rcap: int = 64,

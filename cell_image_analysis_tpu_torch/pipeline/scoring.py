@@ -223,7 +223,9 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
     B, ccap, full_cap = cand.crops.shape[:3]
     flat = [t.reshape(-1) for t in (cand.heights, cand.widths, cand.valid, cand.label_ids,
                                     cand.area)]
-    ints = _to_host(torch.cat([ovf.reshape(-1).int(), *(t.int() for t in flat)]))
+    # the overflow flags, the slots' ints, each frame's geometry-passing labels
+    ints = _to_host(torch.cat([ovf.reshape(-1).int(), *(t.int() for t in flat),
+                               cand.n_geometry.int()]))
     floats = _to_host(torch.cat([t.reshape(-1).float() for t in (
         cand.eccentricity, cand.mean_intensity, cand.std_intensity)]))
     event = None
@@ -348,11 +350,13 @@ def score_frames_fused_wait(pend: dict) -> tuple:
 
     if _overflowed(pend):
         if pend["fallback_segment_fn"] is not None:
-            return score_frames_fused(
+            # the handle keeps the re-run's for `frame_geometry`
+            pend["rerun"] = score_frames_fused_start(
                 pend["model"], pend["params"], pend["segs0"], pend["greens0"],
                 pend["fallback_segment_fn"], chunk=pend["chunk"], caps=pend["caps"],
                 min_votes=pend["min_votes"], out_size=pend["out_size"],
                 clip_limit=pend["clip_limit"], mesh=pend["mesh"], **pend["candidate_kwargs"])
+            return score_frames_fused_wait(pend["rerun"])
         warnings.warn(
             "score_frames_fused: capacity overflow with no fallback_segment_fn — "
             "candidate extraction may have dropped or corrupted cells; pass "
@@ -370,6 +374,18 @@ def score_frames_fused_wait(pend: dict) -> tuple:
         # every process sends, even one that holds padding frames only
         packed, stats = _gather_processes(packed, stats)
     return _result(packed, stats)
+
+
+def frame_geometry(pend: dict) -> np.ndarray:
+    """Each frame's geometry-passing labels in a handle that
+    `score_frames_fused_wait` took (of the exact twin's pass where the
+    batch fell back), as (B,) int32: stage A keeps the first
+    `cell_capacity` of them, so a count at or above the capacity means the
+    frame may have lost cells without a flag.  A handle of one device."""
+    pend = pend.get("rerun", pend)
+    if pend["mesh"] is not None:
+        raise ValueError("frame_geometry: a handle of one device, not of a mesh")
+    return pend["ints"][-pend["shape"][0]:].numpy()
 
 
 def compute_anomaly_scores(model, params: ScoringParams, cells, valid=None,

@@ -23,7 +23,12 @@ import os
 import numpy as np
 import torch
 
-from cell_image_analysis_tpu_torch.config import PipelineConfig
+from cell_image_analysis_tpu_torch.config import (
+    PipelineConfig,
+    capacity_scale,
+    row_scale,
+    scaled_seg_config,
+)
 from cell_image_analysis_tpu_torch.io import artifacts
 from cell_image_analysis_tpu_torch.io.ingest import FrameStream, frames_to_device, list_tiffs
 from cell_image_analysis_tpu_torch.models.segmentation import (
@@ -89,25 +94,15 @@ class ProductionMutantScreening:
         self._unets = (replicate(mesh, self._unet) if mesh is not None and self._unet is not None
                        else self._unet)
 
-    def _capacity_scale(self, h: int, w: int) -> int:
-        """Frame-area multiple of the 1024^2 tuning baseline (>= 1)."""
-        return max(1, -(-(h * w) // (1024 * 1024)))
-
     def _segment_for(self, h: int, w: int):
         """(segment_fn, fallback_fn) with area-scaled capacities."""
-        scale = self._capacity_scale(h, w)
+        scale = capacity_scale(h, w)
         if self._segment_mask is not None or scale == 1:
             return self._segment_mask or self._segment, self._segment_fallback
         key = (h, w)
         if key not in self._plate_backends:
-            base = self._segment.cfg
-            cfg = dataclasses.replace(
-                base,
-                max_candidates=base.max_candidates * scale,
-                raster_cap=(base.raster_cap or base.max_candidates) * scale,
-                nms_max_pairs=base.nms_max_pairs * scale,
-            )
-            primary = StarDistBackend(None, cfg, model=self._unet)
+            primary = StarDistBackend(None, scaled_seg_config(self._segment.cfg, scale),
+                                      model=self._unet)
             self._plate_backends[key] = (primary, primary.exact_twin())
         return self._plate_backends[key]
 
@@ -193,13 +188,13 @@ class ProductionMutantScreening:
             fg_fraction = min(0.25, (100.0 - cfg.seg.threshold_percentile) / 100.0 + 0.02)
         else:
             fg_fraction = 0.25
-        scale = self._capacity_scale(h, w)
+        scale = capacity_scale(h, w)
         seg_fn, fb_fn = self._segment_for(h, w)
         return seg_fn, dict(
             fallback_segment_fn=fb_fn,
             chunk=32, caps=(64, 96),
             fg_fraction=fg_fraction,
-            rcap=32 * max(1, w // 1024),
+            rcap=32 * row_scale(w),
             label_capacity=max(cfg.extract.cell_capacity * 2 * scale, 1024),
             cell_capacity=cfg.extract.cell_capacity * scale,
             out_size=cfg.extract.out_size,
@@ -244,16 +239,12 @@ class ProductionMutantScreening:
         halo = min(cfg.extract.crop_capacity, rows)
         if self._stardist():
             halo = halo // align * align
-        tile_scale = self._capacity_scale(rows + 2 * halo, seg.shape[1])
+        tile_scale = capacity_scale(rows + 2 * halo, seg.shape[1])
         kw = dict(halo=halo, cell_capacity=cfg.extract.cell_capacity * tile_scale,
                   out_size=cfg.extract.out_size, **self._qc_kwargs())
         seg_t, green_t = (torch.as_tensor(c.astype(np.float32)) for c in (seg, green))
         if self._stardist():
-            base = self._segment.cfg
-            seg_cfg = base if tile_scale == 1 else dataclasses.replace(
-                base, max_candidates=base.max_candidates * tile_scale,
-                raster_cap=(base.raster_cap or base.max_candidates) * tile_scale,
-                nms_max_pairs=base.nms_max_pairs * tile_scale)
+            seg_cfg = scaled_seg_config(self._segment.cfg, tile_scale)
 
             def run(kw):
                 return tiled_extract_cells_stardist(seg_t, green_t, self.mesh,

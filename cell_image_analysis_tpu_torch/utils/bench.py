@@ -20,8 +20,15 @@ The backends run at the JAX bench's settings (its `utils/bench.py:130-184,
 (the label capacity), NMS pair budget 8192, cell capacity 128, rcap 32;
 the threshold backend's mask route at label capacity 4096, cell capacity
 128, fg_fraction 0.12; both at chunk 32, caps (64, 96), with the backend's
-exact twin (`exact_twin()`) as the overflow fallback.  The JAX bench's
-`CIA_BENCH_*` environment knobs and TPU settings have no counterpart.
+exact twin (`exact_twin()`) as the overflow fallback.  Above 1024^2 the
+StarDist capacities scale with the frame (`plate_settings`, the rule of
+the screener); the plate-scale rows, JAX's `scripts/bench_2048.py`
+and `scripts/bench_4096.py`, are `scripts/bench_2048_torch.py` and
+`scripts/bench_4096_torch.py`: `run_bench(frame_batch=2)` at 2048^2 and
+4096^2.  `fused=False` is JAX's host-chunked route (`score_frames` at
+chunk 256, one batch at a time).  The JAX bench's `CIA_BENCH_*`
+environment knobs and TPU settings have no counterpart: the settings
+follow from the backend and the frame size.
 
 `vs_baseline` divides by the committed `CPU_BASELINE*.json`: the
 reference's stack (numpy/scipy/sklearn oracles, Keras/TF for the U-Net and
@@ -65,16 +72,59 @@ STARDIST_KW = dict(label_capacity=STARDIST_SEG["raster_cap"], cell_capacity=128,
 THRESHOLD_KW = dict(label_capacity=4096, cell_capacity=128, fg_fraction=0.12, **_COMMON_KW)
 
 
-def _make_frames(n_frames: int, size: int, n_cells: int, seed: int = 7) -> list:
+def plate_settings(size: int) -> tuple:
+    """(seg, kw): the StarDist backend's `SegConfig` fields and the fused
+    call's settings for frames of size^2, by the screener's rule
+    (`config.capacity_scale`, `scaled_seg_config`, `row_scale`) applied to
+    the 1024^2 tuning `STARDIST_SEG` / `STARDIST_KW`: with s the frame-area
+    multiple, K, the raster cap (StarDist's label capacity), the NMS pair
+    budget and the cell capacity times s; rcap times the row-width
+    multiple.  Up to 1024^2 the tuning itself.  At 4096^2: K 4096, raster
+    cap 2048, pairs 131072, rcap 128 (JAX's `scripts/bench_4096.py:20-29`)
+    and cell capacity 2048, where JAX sets 1024: the selection of the first
+    `cell_capacity` geometry-passing labels (`ops/extract.py`) truncates
+    without a flag, and a 4096^2 frame of 1,280 planted cells held 1,324
+    cells, so the capacity is the rule's bound, not a tuning.  At 2048^2:
+    K 1024, raster cap 512, pairs 32768, cell capacity 512, rcap 64 (JAX's
+    `scripts/bench_2048.py` sets none and runs at K 256, which drops
+    cells)."""
+    from cell_image_analysis_tpu_torch.config import (
+        SegConfig,
+        capacity_scale,
+        row_scale,
+        scaled_seg_config,
+    )
+
+    s = capacity_scale(size, size)
+    cfg = scaled_seg_config(SegConfig(**STARDIST_SEG), s)
+    seg = {k: getattr(cfg, k) for k in STARDIST_SEG}
+    kw = dict(STARDIST_KW, label_capacity=seg["raster_cap"],
+              cell_capacity=STARDIST_KW["cell_capacity"] * s,
+              rcap=STARDIST_KW["rcap"] * row_scale(size))
+    return seg, kw
+
+
+def _make_frames(n_frames: int, size: int, n_cells: int, seed: int = 7,
+                 planted: list | None = None) -> list:
     """`n_frames` (size, size, 3) uint16 frames of one rng stream:
     `make_frame`, or `make_frame_instances` from 2048^2 up (cost linear in
-    the cells, not cells x pixels); byte-identical to JAX's."""
+    the cells, not cells x pixels); byte-identical to JAX's.  `planted`, if
+    given (from 2048^2 up), receives each frame's (n_cells, 3) planted
+    cells: centre row, centre column, short radius."""
     from cell_image_analysis_tpu_torch.utils.synthetic import make_frame, make_frame_instances
 
     rng = np.random.default_rng(seed)
     if size >= 2048:
-        return [make_frame_instances(rng, size=size, n_cells=n_cells)[0]
-                for _ in range(n_frames)]
+        frames = []
+        for _ in range(n_frames):
+            centers = []
+            frames.append(make_frame_instances(rng, size=size, n_cells=n_cells,
+                                               centers=centers)[0])
+            if planted is not None:
+                planted.append(np.array(centers))
+        return frames
+    if planted is not None:
+        raise ValueError("planted cells are recorded from 2048^2 up (make_frame_instances)")
     return [make_frame(rng, size=size, n_cells=n_cells) for _ in range(n_frames)]
 
 
@@ -170,15 +220,16 @@ def _fit_params(seed: int = 0, X: np.ndarray | None = None, device=None,
     return model, params, host
 
 
-def stardist_backend(device=None):
-    """The bench's `StarDistBackend` (`STARDIST_SEG`: tiled rasterizer,
-    run-length stage A) over the committed U-Net
+def stardist_backend(device=None, seg: dict | None = None):
+    """The bench's `StarDistBackend` (`seg`, default `STARDIST_SEG`: tiled
+    rasterizer, run-length stage A) over the committed U-Net
     (`assets/unet_synthetic.pkl`), on `device`."""
     from cell_image_analysis_tpu_torch.config import SegConfig
     from cell_image_analysis_tpu_torch.io.artifacts import load_unet_variables
     from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
 
-    return StarDistBackend(load_unet_variables(), SegConfig(**STARDIST_SEG), device=device)
+    return StarDistBackend(load_unet_variables(), SegConfig(**(seg or STARDIST_SEG)),
+                           device=device)
 
 
 class _CountedCalls:
@@ -196,32 +247,44 @@ class _CountedCalls:
         return self.fn(segs)
 
 
-def _batch_pipeline(model, params, backend: str = "threshold", device=None):
-    """(run, run_stream, fallback): `run(segs, greens)` screens one batch
-    (`score_frames_fused`) and returns (cells, (scores, stats));
-    `run_stream(batches)` starts every batch with `score_frames_fused_start`,
-    then waits on each in order (`_wait` fetches to the host), and returns
-    (cells, device bytes the pending handles held once all were started,
-    or None on the CPU); `fallback.calls` counts the batches that re-ran
-    through the exact twin."""
+def _batch_pipeline(model, params, backend: str = "threshold", device=None, fused: bool = True,
+                    size: int = 1024):
+    """(run, run_stream, fallback) for frames of size^2: `run(segs,
+    greens)` screens one batch (`score_frames_fused`, or with `fused=False`
+    JAX's host-chunked `score_frames` at chunk 256) and returns (cells,
+    (scores, stats)); `run_stream(batches)` starts every batch with
+    `score_frames_fused_start`, then waits on each in order (`_wait`
+    fetches to the host), and returns (cells, device bytes the pending
+    handles held once all were started or None on the CPU, each frame's
+    geometry-passing labels (`frame_geometry`)); `fallback.calls` counts
+    the batches that re-ran through the exact twin.  StarDist runs at
+    `plate_settings(size)`, the threshold backend at `THRESHOLD_KW`."""
     from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
     from cell_image_analysis_tpu_torch.pipeline.scoring import (
+        frame_geometry,
+        score_frames,
         score_frames_fused,
         score_frames_fused_start,
         score_frames_fused_wait,
     )
 
     if backend == "stardist":
-        segment_fn, kw = stardist_backend(device=device), dict(STARDIST_KW)
+        seg, kw = plate_settings(size)
+        segment_fn = stardist_backend(device=device, seg=seg)
     elif backend == "threshold":
-        segment_fn, kw = ThresholdBackend(), dict(THRESHOLD_KW)
+        kw = dict(THRESHOLD_KW)
+        segment_fn = ThresholdBackend()
     else:
         raise ValueError(f"unknown backend {backend!r}")
     fallback = _CountedCalls(segment_fn.exact_twin())
     kw["fallback_segment_fn"] = fallback
+    if not fused:   # JAX's host-chunked route (its utils/bench.py:200-212)
+        kw.pop("caps", None)
+        kw["chunk"] = 256
+    screen = score_frames_fused if fused else score_frames
 
     def run(segs, greens):
-        scores, stats = score_frames_fused(model, params, segs, greens, segment_fn, **kw)
+        scores, stats = screen(model, params, segs, greens, segment_fn, **kw)
         return len(stats["area"]), (scores, stats)
 
     def run_stream(batches):
@@ -235,24 +298,30 @@ def _batch_pipeline(model, params, backend: str = "threshold", device=None):
         for pend in pendings:
             _, stats = score_frames_fused_wait(pend)
             total += len(stats["area"])
-        return total, held
+        return total, held, np.concatenate([frame_geometry(p) for p in pendings])
 
     return run, run_stream, fallback
 
 
 def run_device_bench(n_frames: int = 48, size: int = 1024, n_cells: int = 80,
-                     backend: str = "threshold", device=None, frames=None) -> dict:
+                     backend: str = "threshold", device=None, frames=None,
+                     frame_batch: int = FRAME_BATCH, fused: bool = True) -> dict:
     """Screening throughput on `device` (default: the card); the
     counterpart of JAX's `run_tpu_bench`.  `frames`: the (n_frames, size,
     size, 3) frames, if the caller made them already (else
     `_make_frames(n_frames, size, n_cells)`; making them is not timed).
-    Batches of FRAME_BATCH frames (JAX's bench runs both backends at 16);
-    two warm-up runs of the first batch, then the best of 2 timed runs of
-    every batch, all started before the first is waited on.  Returns cells,
-    seconds, cells_per_sec, frames_per_sec, n_frames, size, backend, the
-    device's name, `fallback_batches` of `batches_run` (over warm-ups and
-    timed runs), and on the card `pending_gib` (what the started handles
-    held) and `peak_gib` (the timed runs' peak)."""
+    Batches of `frame_batch` frames (JAX's bench runs both backends at 16,
+    its plate rows at 2); two warm-up runs of the first batch, then the
+    best of 2 timed runs of every batch: `fused`, all started before the
+    first is waited on; else JAX's host-chunked route, one batch at a
+    time.  The capacities follow the frame size (`_batch_pipeline`).
+    Returns cells, seconds, cells_per_sec, frames_per_sec, n_frames, size,
+    frame_batch, fused, backend, the device's name, `fallback_batches` of
+    `batches_run` (over warm-ups and timed runs), `geometry` (the best
+    timed run's geometry-passing labels of each frame, which the cell
+    capacity bounds; None when not pipelined), and on the card
+    `pending_gib` (what the started handles held; None when not
+    pipelined) and `peak_gib` (the timed runs' peak)."""
     dev = resolve_device(device)
     model, params, _ = _fit_params(device=dev)
     if frames is None:
@@ -260,12 +329,19 @@ def run_device_bench(n_frames: int = 48, size: int = 1024, n_cells: int = 80,
     stack = np.stack(frames[:n_frames])
     if stack.shape[:3] != (n_frames, size, size):
         raise ValueError(f"frames of shape {stack.shape[:3]}, expected {(n_frames, size, size)}")
+    if frame_batch < 1:
+        raise ValueError(f"frame_batch {frame_batch} < 1")
     segs = torch.tensor(stack[..., 2].astype(np.float32), device=dev)
     greens = torch.tensor(stack[..., 1].astype(np.float32), device=dev)
-    run, run_stream, fallback = _batch_pipeline(model, params, backend, dev)
-    batches = [(segs[i:i + FRAME_BATCH], greens[i:i + FRAME_BATCH])
-               for i in range(0, n_frames, FRAME_BATCH)]
+    del stack
+    run, run_stream, fallback = _batch_pipeline(model, params, backend, dev, fused=fused,
+                                                size=size)
+    batches = [(segs[i:i + frame_batch], greens[i:i + frame_batch])
+               for i in range(0, n_frames, frame_batch)]
     cuda = dev.type == "cuda"
+
+    def one_at_a_time(batches):
+        return sum(run(s, g)[0] for s, g in batches), None, None
 
     run(*batches[0])
     run(*batches[0])
@@ -275,14 +351,16 @@ def run_device_bench(n_frames: int = 48, size: int = 1024, n_cells: int = 80,
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        total, held = run_stream(batches)
+        total, held, geometry = (run_stream if fused else one_at_a_time)(batches)
         dt = time.perf_counter() - t0
         if best is None or total / dt > best["cells_per_sec"]:
             best = dict(cells=total, seconds=dt, cells_per_sec=total / dt,
                         frames_per_sec=n_frames / dt, n_frames=n_frames, size=size,
-                        pending_gib=held / 2 ** 30 if cuda else None,
+                        geometry=None if geometry is None else geometry.tolist(),
+                        pending_gib=held / 2 ** 30 if cuda and held is not None else None,
                         peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else None)
     best.update(backend=backend, device=torch.cuda.get_device_name(dev) if cuda else "cpu",
+                frame_batch=frame_batch, fused=fused,
                 fallback_batches=fallback.calls, batches_run=2 + 2 * len(batches))
     return best
 
@@ -305,17 +383,73 @@ def _line(metric: str, rate: float, base: float | None) -> str:
 
 def run_bench(n_frames: int = 48, size: int = 1024, n_cells: int = 80,
               backend: str = "threshold", device=None, frames=None,
-              report: dict | None = None) -> str:
+              report: dict | None = None, frame_batch: int = FRAME_BATCH,
+              fused: bool = True) -> str:
     """The headline: 3 pipelined batches of 16 frames against the
     backend's CPU baseline; one JSON line.  `report`, if given, receives
-    `run_device_bench`'s result."""
+    `run_device_bench`'s result; `frame_batch` and `fused` are its."""
     res = run_device_bench(n_frames=n_frames, size=size, n_cells=n_cells, backend=backend,
-                           device=device, frames=frames)
+                           device=device, frames=frames, frame_batch=frame_batch, fused=fused)
     if report is not None:
         report.update(res)
     suffix = "_stardist" if backend == "stardist" else ""
     return _line(f"screening_cells_per_sec_per_chip{suffix}", res["cells_per_sec"],
                  load_cpu_baseline(backend))
+
+
+# JAX's plate-scale rows (scripts/bench_2048.py, scripts/bench_4096.py):
+# side -> (frames, cells a frame, frame batch)
+PLATE_ROWS = {2048: (12, 320, 2), 4096: (4, 1280, 2)}
+
+
+def plate_line(size: int, res: dict) -> str:
+    """The JSON line of JAX's plate-scale scripts, from
+    `run_device_bench`'s result: `mpx_per_sec` on the 4096^2 row only."""
+    out = {"metric": f"screening_cells_per_sec_per_chip_stardist_{size}",
+           "value": round(res["cells_per_sec"], 2), "unit": "cells/s/chip",
+           "frames_per_sec": round(res["frames_per_sec"], 3)}
+    if size == 4096:
+        out["mpx_per_sec"] = round(res["frames_per_sec"] * size * size / 1e6, 1)
+    out["cells"] = res["cells"]
+    return json.dumps(out)
+
+
+def plate_row_main(size: int, argv=None) -> int:
+    """`scripts/bench_{size}_torch.py [n_frames] [frame_batch] [--device
+    D]`: StarDist screening of `PLATE_ROWS[size]`'s frames at
+    `plate_settings(size)`, pipelined; one JSON line on stdout, the
+    device, the settings, the batches that fell back, the largest frame's
+    geometry-passing labels against the cell capacity and the memory on
+    stderr.  Without a GPU it exits 2 unless given `--device cpu`."""
+    import argparse
+    import sys
+
+    n_frames, n_cells, frame_batch = PLATE_ROWS[size]
+    ap = argparse.ArgumentParser(
+        prog=f"bench_{size}_torch.py",
+        description=f"Plate-scale bench row: {size}^2 frames, {n_cells} cells a frame, "
+                    "through the fused StarDist path on one GPU")
+    ap.add_argument("n_frames", nargs="?", type=int, default=n_frames)
+    ap.add_argument("frame_batch", nargs="?", type=int, default=frame_batch)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs on the CPU, slowly)")
+    args = ap.parse_args(argv)
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        ap.exit(2, f"{ap.prog}: error: {e} (--device cpu)\n")
+    seg, kw = plate_settings(size)
+    print(f"device: {device}; StarDist settings {seg}, {kw}", file=sys.stderr)
+    res = run_device_bench(n_frames=args.n_frames, size=size, n_cells=n_cells,
+                           backend="stardist", device=device, frame_batch=args.frame_batch)
+    print(plate_line(size, res))
+    top, cap = max(res["geometry"]), kw["cell_capacity"]
+    reached = " (reached: the frame may have lost cells)" if top >= cap else ""
+    print(f"{res['device']}: {args.n_frames} frames in batches of {args.frame_batch}; batches "
+          f"that fell back to the exact twin {res['fallback_batches']} of {res['batches_run']}; "
+          f"geometry-passing labels of the largest frame {top}, cell capacity {cap}{reached}; "
+          f"pending {res['pending_gib']} GiB, peak {res['peak_gib']} GiB", file=sys.stderr)
+    return 0
 
 
 def run_train_bench(n_cells: int = 2048, epochs: int = 12, device=None, train_cfg=None,

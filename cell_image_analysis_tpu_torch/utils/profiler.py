@@ -2,12 +2,13 @@
 
 Counterpart of `cell_image_analysis_tpu/utils/profiler.py`: `StageTimer`
 wraps pipeline stages on the host's clock; `ThroughputMeter` accumulates
-item counts.
+item counts; `trace` records a block with `torch.profiler`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -60,3 +61,29 @@ class ThroughputMeter:
     @property
     def rate(self) -> float:
         return self.items / self.seconds if self.seconds > 0 else 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """A `torch.profiler` trace of the block (the host, and the card where
+    there is one), written into `log_dir` as a Chrome trace
+    `trace_<pid>_<ns>.json` when the block ends, also when it raises; the
+    exception goes on.  `None` or "" does nothing."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -97,17 +97,20 @@ def make_plate(rng: np.random.Generator, size: int = 4096, n_cells: int = 1280,
 def make_frame_instances(rng: np.random.Generator, size: int = 512, n_cells: int = 25,
                          mutant_fraction: float = 0.0, background: float = 80.0,
                          noise: float = 10.0, clustering: float = 0.0, fg_d2: float = 1.1,
-                         cutoff: float = 3.0) -> tuple[np.ndarray, np.ndarray]:
+                         cutoff: float = 3.0,
+                         centers: list | None = None) -> tuple[np.ndarray, np.ndarray]:
     """One (size, size, 3) uint16 frame and its true instance labels
     (size, size) int32: a cell owns the pixels of its footprint
     ``d2 <= fg_d2`` where its normalized distance is the smallest.  A
     `clustering` fraction of cells is placed next to an earlier one.  Cells
-    render into windows of `cutoff` normalized radii."""
+    render into windows of `cutoff` normalized radii.  `centers`, if given,
+    receives each cell's (centre row, centre column, short radius) in label
+    order; the draws do not change."""
     seg = np.full((size, size), background, np.float64)
     green = np.full((size, size), background, np.float64)
     labels = np.zeros((size, size), np.int32)
     best_d2 = np.full((size, size), np.inf, np.float64)
-    centers: list[tuple[float, float, float]] = []  # (cy, cx, r_eff)
+    placed: list[tuple[float, float, float]] = []  # (cy, cx, r_eff)
 
     for idx in range(1, n_cells + 1):
         mutant = rng.uniform() < mutant_fraction
@@ -117,15 +120,17 @@ def make_frame_instances(rng: np.random.Generator, size: int = 512, n_cells: int
         amp = rng.uniform(900, 1500) * (1.8 if mutant else 1.0)
         r_eff = r * (1 + aspect) / 2
 
-        if centers and rng.uniform() < clustering:
-            cy0, cx0, r0 = centers[int(rng.integers(len(centers)))]
+        if placed and rng.uniform() < clustering:
+            cy0, cx0, r0 = placed[int(rng.integers(len(placed)))]
             ang = rng.uniform(0, 2 * np.pi)
             d = rng.uniform(1.6, 2.6) * max(r_eff, r0)
             cy = float(np.clip(cy0 + d * np.sin(ang), 30, size - 30))
             cx = float(np.clip(cx0 + d * np.cos(ang), 30, size - 30))
         else:
             cy, cx = (float(v) for v in rng.uniform(30, size - 30, 2))
-        centers.append((cy, cx, r_eff))
+        placed.append((cy, cx, r_eff))
+        if centers is not None:
+            centers.append((cy, cx, r))
 
         w_half = int(np.ceil(cutoff * r * max(aspect, 1.0))) + 1
         y0, y1 = max(0, int(cy) - w_half), min(size, int(cy) + w_half + 1)

@@ -27,9 +27,13 @@ Phases (any failure exits non-zero before the last line is printed):
    compaction that the parent ran after its kernel timed for the record;
    then on 1024^2 structural masks (all-true, a full-frame serpentine,
    random at 0.59 density) at connectivity 1 and 2: equal to labels
-   derived from `scipy.ndimage.label` on the host; and the device time of
-   CC and Winograd at the shapes of phase 12's haloed tiles (every
-   profiler time of the run is taken here);
+   derived from `scipy.ndimage.label` on the host; the device time of
+   CC and Winograd at the shapes of phase 12's haloed tiles; and, with
+   phase 16, at the 4096^2 plate row's shapes: Winograd's Conv_1 on (2,
+   4096, 4096, 32 -> 32) within 1e-5 of cuDNN, segment sum and CLAHE on
+   the row's first batch (its frames made by a worker process that starts
+   with the smoke) bit-equal (every profiler time of the run is taken
+   here);
 3. the main path — StarDist screening of the bench's 16 synthetic
    1024^2 frames (made once, on the host, for phases 2, 3, 5 and 6)
    through `score_frames_fused`, run twice; the launch counts of the
@@ -223,7 +227,25 @@ Phases (any failure exits non-zero before the last line is printed):
    (else both histories are printed).  The two stores' screening rates are
    printed side by side, not gated (JAX's rate band is vacuous), with the
    phase's seconds.  `--phases 0,1,15` runs it alone;
-16. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+16. JAX's plate-scale rows (scripts/bench_2048.py: 12 frames of 2048^2,
+   320 cells; scripts/bench_4096.py: 4 frames of 4096^2, 1,280 cells;
+   made by worker processes) through `utils/bench.run_device_bench` at
+   `scripts/bench_*_torch.py`'s defaults: batches of 2, all started
+   before the first wait, two warm-ups, best of 2, at
+   `plate_settings(size)` (the capacities scaled with the frame's area),
+   the counts set to 0 before each row and read after (Winograd, segment
+   sum and CLAHE must launch; each kernel's launches a batch are
+   printed); cells/s, frames/s, Mpx/s, pending and peak memory and the
+   batches that fell back to the exact twin (printed, not an error);
+   each frame's geometry-passing labels in the timed run against the
+   cell capacity (a frame that reaches it fails the phase) and, in a
+   second pass through the row's backend, the instances against
+   the planted cells (`scripts/probe_plate_cells.py`'s method: found,
+   missed); then the row's first batch through the bench's pipeline with
+   every kernel call held against its plain version (`_HeldAgainstPlain`).
+   `--phases 0,1,16` runs it alone (exit 1: no result line; without phase
+   2 the kernels are not timed at the row's shapes);
+17. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -268,7 +290,7 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16}
 TRAIN_EPOCHS = 5  # phase 10's epochs (the CAE's width is never cut)
 # phase 11: the recipe of assets/unet_synthetic.pkl (scripts/make_unet_weights.py
 # --dense: 8 crowded frames of 256^2, 400 full-batch epochs at lr 3e-3), at
@@ -523,7 +545,37 @@ def _clahe_buckets(torch, path: dict, what: str) -> dict:
     return row
 
 
-def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
+def _segsum_check(torch, dev, table: tuple, what: str) -> dict:
+    """The segment-sum kernel equal to its plain version on a run table
+    (seg, data, n_seg) as stage A builds it, its device time, the
+    event-timed wrapper call, the plain version's and `index_add_`'s times
+    and its bound."""
+    from cell_image_analysis_tpu_torch.ops.cuda.segsum import segment_sums_cuda
+    from cell_image_analysis_tpu_torch.ops.segsum import segment_sums_plain
+
+    seg, data, n_seg = table
+    got = segment_sums_cuda(seg, data, n_seg)
+    ref = segment_sums_plain(seg, data, n_seg)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"segment_sum on {what}: kernel differs from index_add_")
+    keep = (seg >= 0) & (seg < n_seg)
+    seg_k, data_k = seg[keep].long(), data[keep]
+    out = torch.zeros((n_seg, data.shape[1]), dtype=torch.int64, device=dev)
+    t_d = device_ms(lambda: segment_sums_cuda(seg, data, n_seg), ("segment_sum_kernel",))
+    t_k = time_ms(lambda: segment_sums_cuda(seg, data, n_seg))
+    t_p = time_ms(lambda: segment_sums_plain(seg, data, n_seg))
+    t_l = time_ms(lambda: out.index_add_(0, seg_k, data_k))
+    b_ms, b_by = bound(seg.numel() * 4 + data.numel() * 8 + n_seg * data.shape[1] * 8)
+    log(f"[2] segment_sum on {what} {tuple(data.shape)} -> ({n_seg}, 6), "
+        f"{int((ref[:, 0] > 0).sum())} labels: equal; kernel device {t_d:.4f} ms, wrapper "
+        f"call {t_k:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), {100 * b_ms / t_d:.1f}% of "
+        f"it; plain {t_p:.3f} ms, index_add_ alone {t_l:.3f} ms")
+    return dict(ms=t_d, event_ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_l, shape=list(data.shape))
+
+
+def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
     from cell_image_analysis_tpu_torch.ops.cc import (
         cc_min_labels_plain,
@@ -531,10 +583,8 @@ def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
         label_components,
         label_components_plain,
     )
-    from cell_image_analysis_tpu_torch.ops.cuda.segsum import segment_sums_cuda
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
     from cell_image_analysis_tpu_torch.ops.runs import run_moment_table
-    from cell_image_analysis_tpu_torch.ops.segsum import segment_sums_plain
     from cell_image_analysis_tpu_torch.ops.winograd import (
         pad_input,
         winograd_conv3x3_plain,
@@ -586,26 +636,8 @@ def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
     res["winograd_conv3x3"] = dict(max_abs_err=err_w, bound_by=largest[1], **row)
 
     # segment sum over the 16 frames' run table, as stage A of the main path builds it
-    seg, data, n_seg = run_moment_table(main["labels"], capacity=128, rcap=32)
-    got = segment_sums_cuda(seg, data, n_seg)
-    ref = segment_sums_plain(seg, data, n_seg)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError("segment_sum: kernel differs from index_add_")
-    keep = (seg >= 0) & (seg < n_seg)
-    seg_k, data_k = seg[keep].long(), data[keep]
-    out = torch.zeros((n_seg, data.shape[1]), dtype=torch.int64, device=dev)
-    t_d = device_ms(lambda: segment_sums_cuda(seg, data, n_seg), ("segment_sum_kernel",))
-    t_k = time_ms(lambda: segment_sums_cuda(seg, data, n_seg))
-    t_p = time_ms(lambda: segment_sums_plain(seg, data, n_seg))
-    t_l = time_ms(lambda: out.index_add_(0, seg_k, data_k))
-    b_ms, b_by = bound(seg.numel() * 4 + data.numel() * 8 + n_seg * data.shape[1] * 8)
-    log(f"[2] segment_sum {tuple(data.shape)} -> ({n_seg}, 6), "
-        f"{int((ref[:, 0] > 0).sum())} labels: equal; kernel device {t_d:.4f} ms, wrapper "
-        f"call {t_k:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), {100 * b_ms / t_d:.1f}% of "
-        f"it; plain {t_p:.3f} ms, index_add_ alone {t_l:.3f} ms")
-    res["segment_sum"] = dict(max_abs_err=0.0, ms=t_d, event_ms=t_k, plain_ms=t_p,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+    res["segment_sum"] = dict(max_abs_err=0.0, **_segsum_check(
+        torch, dev, run_moment_table(main["labels"], capacity=128, rcap=32), "the 16 frames"))
 
     # CLAHE: 32 random cells at each bucket capacity, then the main path's buckets
     rng = np.random.default_rng(3)
@@ -653,6 +685,10 @@ def phase_kernels(torch, dev, unet_vars, main, thresh) -> dict:
     for name, tile in _tile_times(torch, dev, masks, unet_vars).items():
         res[name].update(tile)
     _cc_structural(torch, dev)
+    if plate is not None:
+        del masks
+        for name, at_plate in _plate_times(torch, dev, unet_vars, plate).items():
+            res[name].update(at_plate)
     return res
 
 
@@ -2690,6 +2726,238 @@ def phase_round_trip(torch, dev, unet_vars, tmp_root: str) -> dict:
                 epochs=(len(hc["loss"]), len(hp["loss"])))
 
 
+# ------------------------------------------------ phase 16: the plate rows --
+
+def write_plate_frames(folder: str, size: int) -> tuple:
+    """Worker process: the plate row's frames (`utils/bench._make_frames` at
+    `PLATE_ROWS[size]`, one rng stream) and each frame's planted cells
+    (centre row, centre column, short radius) into .npy files; returns
+    their paths."""
+    from cell_image_analysis_tpu_torch.utils.bench import PLATE_ROWS, _make_frames
+
+    n_frames, n_cells, _ = PLATE_ROWS[size]
+    planted = []
+    frames = np.stack(_make_frames(n_frames, size, n_cells, planted=planted))
+    paths = tuple(os.path.join(folder, f"plate{size}_{what}.npy") for what in ("frames", "planted"))
+    np.save(paths[0], frames)
+    np.save(paths[1], np.stack(planted))
+    return paths
+
+
+def _plate_batch(torch, dev, frames_path: str, size: int) -> dict:
+    """Phase 2's input at the 4096^2 row's shapes: the row's first batch
+    (`PLATE_ROWS`' frame batch) through the row's StarDist backend
+    (`plate_settings`) and stage A, as `stage_a_buckets` gives them, with
+    the label maps (segment sum's input) and the settings."""
+    from cell_image_analysis_tpu_torch.utils import bench
+
+    seg, kw = bench.plate_settings(size)
+    fb = bench.PLATE_ROWS[size][2]
+    frames = np.load(frames_path, mmap_mode="r")[:fb]
+    segs = torch.tensor(frames[..., 2].astype(np.float32), device=dev)
+    greens = torch.tensor(frames[..., 1].astype(np.float32), device=dev)
+    backend = bench.stardist_backend(device=dev, seg=seg)
+    cand_kw = {k: kw[k] for k in ("label_capacity", "cell_capacity", "rcap")}
+    out = stage_a_buckets(torch, backend, segs, greens, cand_kw)
+    with torch.inference_mode():
+        out.update(labels=backend(segs)[0], settings=(seg, kw))
+    return out
+
+
+def _plate_times(torch, dev, unet_vars, plate: dict) -> dict:
+    """Phase 2's method at the 4096^2 row's shapes: Winograd's Conv_1 on
+    (2, 4096, 4096, 32 -> 32) (random ReLU input, the committed weights)
+    against its plain version (cuDNN fp32, also the library call), segment
+    sum on the row's first batch's run table against `index_add_`, the
+    fused CLAHE on that batch's size buckets, bit-equal; each kernel's
+    device time, event-timed call, plain time and bound."""
+    from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
+    from cell_image_analysis_tpu_torch.ops.runs import run_moment_table
+    from cell_image_analysis_tpu_torch.ops.winograd import (
+        pad_input,
+        winograd_conv3x3_plain,
+        winograd_operands,
+    )
+
+    B, side = plate["labels"].shape[:2]
+    res = {}
+    Wt = torch.tensor(unet_vars["params"]["Conv_1"]["kernel"], device=dev)
+    bias = torch.tensor(unet_vars["params"]["Conv_1"]["bias"], device=dev)
+    x = torch.relu(torch.randn((B, side, side, 32), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev))
+    xp, ops = pad_input(x), winograd_operands(Wt, bias)
+    y = winograd_conv3x3_cuda(xp, *ops)
+    ref = winograd_conv3x3_plain(x, Wt, bias)
+    torch.cuda.synchronize()
+    rel = float((y - ref).abs().max()) / float(ref.abs().max())
+    del y, ref
+    if not rel < 1e-5:
+        raise AssertionError(f"[2] winograd Conv_1 at {(B, side, side, 32)}: relative error "
+                             f"{rel:.3e} >= 1e-5")
+    t_d = device_ms(lambda: winograd_conv3x3_cuda(xp, *ops), ("winograd_kernel",), n=5)
+    t_k = time_ms(lambda: winograd_conv3x3_cuda(xp, *ops), n=3)
+    t_p = time_ms(lambda: winograd_conv3x3_plain(x, Wt, bias), n=3)
+    b_ms, b_by = winograd_bound(B, side, side, 32, 32)
+    log(f"[2] winograd Conv_1 at the 4096^2 row's shape ({B}, {side}, {side}, 32 -> 32), "
+        f"{x.numel():,} input elements: rel err {rel:.3e}; kernel device {t_d:.3f} ms, "
+        f"wrapper call {t_k:.3f} ms; bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / t_d:.1f}% of "
+        f"it; plain (cuDNN fp32, the library call) {t_p:.3f} ms")
+    res["winograd_conv3x3"] = dict(plate_shape=[B, side, side, 32, 32], plate_ms=t_d,
+                                   plate_event_ms=t_k, plate_bound_ms=b_ms, plate_plain_ms=t_p,
+                                   plate_library_ms=t_p, plate_max_rel_err=rel)
+    del x, xp
+
+    _, kw = plate["settings"]
+    table = run_moment_table(plate["labels"], capacity=kw["label_capacity"], rcap=kw["rcap"])
+    res["segment_sum"] = {f"plate_{k}": v for k, v in _segsum_check(
+        torch, dev, table, "the 4096^2 row's first batch").items() if k != "bound_by"}
+    row = _clahe_buckets(torch, plate, "4096^2 row's first batch")
+    res["clahe_cells"] = dict(plate_cells=sum(int(ids.numel()) for ids, _, _ in plate["buckets"]),
+                              plate_ms=row["ms"], plate_event_ms=row["event_ms"],
+                              plate_bound_ms=row["bound_ms"], plate_plain_ms=row["plain_ms"],
+                              plate_library_ms=None)
+    return res
+
+
+def _recall(torch, dev, segs, planted, probe) -> dict:
+    """Per frame of a row, through the row's StarDist backend in its frame
+    batches: the labels, the segmentation's overflow flags, the grid pixels
+    and peaks above the probability threshold and the peaks below the K-th
+    largest probability (cut by top-K without a flag,
+    `scripts/probe_plate_cells.py`'s count), and the instances against the
+    planted cells by that script's method (an instance of at least 200
+    pixels finds the planted cell whose centre lies within the cell's short
+    radius of its centroid)."""
+    import torch.nn.functional as F
+
+    from cell_image_analysis_tpu_torch.ops.percentile import normalize_percentile
+    from cell_image_analysis_tpu_torch.ops.runs import regionprops_from_labels
+    from cell_image_analysis_tpu_torch.utils import bench
+
+    size = segs.shape[-1]
+    seg, kw = bench.plate_settings(size)
+    fb = bench.PLATE_ROWS[size][2]
+    backend = bench.stardist_backend(device=dev, seg=seg)
+    cfg = backend.cfg
+    out = dict(labels=[], overflow=[], above=[], peaks=[], peaks_cut=[], found=0, missed=0,
+               twice=0, without=0, instances=0)
+    with torch.inference_mode():
+        for i in range(0, segs.shape[0], fb):
+            prob, _ = backend.model(normalize_percentile(
+                segs[i:i + fb], pmin=cfg.norm_pmin, pmax=cfg.norm_pmax)[..., None])
+            above = prob > cfg.prob_thresh
+            peaks = (prob >= F.max_pool2d(prob[:, None], 3, 1, 1)[:, 0]) & above
+            kth = torch.topk(prob.reshape(prob.shape[0], -1), cfg.max_candidates).values[:, -1]
+            out["above"] += above.sum(dim=(1, 2)).tolist()
+            out["peaks"] += peaks.sum(dim=(1, 2)).tolist()
+            out["peaks_cut"] += (peaks & (prob < kth[:, None, None])).sum(dim=(1, 2)).tolist()
+            del prob, above, peaks
+            labels, ovf = backend(segs[i:i + fb])
+            _, run_ovf = regionprops_from_labels(labels, capacity=kw["label_capacity"],
+                                                 rcap=kw["rcap"])
+            out["labels"] += labels.amax(dim=(1, 2)).tolist()
+            out["overflow"] += (ovf | run_ovf).tolist()
+            for b, lab in enumerate(labels.cpu().numpy()):
+                m = probe.match(probe.centroids(lab), planted[i + b])
+                out["instances"] += m["instances"]
+                out["found"] += m["planted_found"]
+                out["missed"] += m["planted_missed"]
+                out["twice"] += m["planted_found_twice"]
+                out["without"] += m["instances_without_a_cell"]
+    return out
+
+
+def phase_plates(torch, dev, plate_paths: dict) -> dict:
+    """Phase 16: JAX's plate-scale rows (scripts/bench_2048.py,
+    scripts/bench_4096.py) through `run_device_bench` at
+    `scripts/bench_*_torch.py`'s defaults (`PLATE_ROWS`, `plate_settings`),
+    the counts set to 0 before each row and read after; the timed run's
+    geometry-passing labels of each frame against the cell capacity, and
+    the row's instances against the planted cells; then the row's first batch through the
+    bench's pipeline with every kernel call held against its plain version.
+    Fails where a frame reaches its cell capacity, a kernel of the path did
+    not launch or a held call differs.  Returns each row's numbers."""
+    import gc
+
+    from cell_image_analysis_tpu_torch.utils import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = smi_line()
+    probe = _script("probe_plate_cells")
+    needed = ("winograd_conv3x3", "segment_sum", "clahe_cells")
+    out = {}
+    for size, (frames_path, planted_path) in sorted(plate_paths.items()):
+        tag = f"[16] {size}^2"
+        n_frames, n_cells, fb = bench.PLATE_ROWS[size]
+        seg_s, kw_s = bench.plate_settings(size)
+        frames = np.load(frames_path)
+        planted = np.load(planted_path)
+        torch.cuda.synchronize()
+        _reset_launches()
+        res = bench.run_device_bench(n_frames=n_frames, size=size, n_cells=n_cells,
+                                     backend="stardist", device=dev, frames=frames,
+                                     frame_batch=fb)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        line = bench.plate_line(size, res)
+        runs = res["batches_run"]
+        log(f"{tag} {line} [{smi}]")
+        log(f"{tag}: {n_frames} frames of {n_cells} planted cells in batches of {fb} (all "
+            f"started before the first wait), K {seg_s['max_candidates']}, raster cap "
+            f"{seg_s['raster_cap']}, NMS pairs {seg_s['nms_max_pairs']}, cell capacity "
+            f"{kw_s['cell_capacity']}, rcap {kw_s['rcap']}: best run {res['cells']} cells in "
+            f"{res['seconds']:.4f} s = {res['cells_per_sec']:.2f} cells/s, "
+            f"{res['frames_per_sec']:.3f} frames/s, "
+            f"{res['frames_per_sec'] * size * size / 1e6:.1f} Mpx/s; pending handles "
+            f"{res['pending_gib']:.3f} GiB, peak {res['peak_gib']:.3f} GiB; batches that fell "
+            f"back to the exact twin: {res['fallback_batches']} of {runs} [{smi}]")
+        log(f"{tag}: launches over the {runs} batch runs (two warm-ups, two timed runs) "
+            f"{launches}, a batch " + ", ".join(f"{k} {v / runs:g}" for k, v in launches.items()))
+        missing = [k for k in needed if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{tag}: kernels of the path were not launched: {missing}")
+
+        segs = torch.tensor(frames[..., 2].astype(np.float32), device=dev)
+        t0 = time.perf_counter()
+        geo = _recall(torch, dev, segs, planted, probe)
+        del segs
+        top = max(res["geometry"])
+        log(f"{tag}: labels a frame {geo['labels']} (label capacity {kw_s['label_capacity']}); "
+            f"geometry-passing labels a frame in the timed run {res['geometry']}, largest {top} "
+            f"against the cell capacity {kw_s['cell_capacity']} (JAX's row: 1024 at 4096^2); "
+            f"segmentation or run overflow a frame {geo['overflow']}")
+        log(f"{tag}: grid pixels above the probability threshold a frame {geo['above']}, "
+            f"peaks {geo['peaks']}, peaks below the K-th ({seg_s['max_candidates']}) "
+            f"probability, cut by top-K without a flag, {geo['peaks_cut']}")
+        log(f"{tag}: planted cells {n_frames * n_cells}: found {geo['found']}, missed "
+            f"{geo['missed']} ({100 * geo['missed'] / (n_frames * n_cells):.2f}%), found twice "
+            f"{geo['twice']}; instances of >= {probe.MIN_AREA} px {geo['instances']}, "
+            f"{geo['without']} without a planted cell ({time.perf_counter() - t0:.1f} s)")
+        if top >= kw_s["cell_capacity"]:
+            raise AssertionError(f"{tag}: a frame reached its cell capacity ({top} "
+                                 f"geometry-passing labels, capacity {kw_s['cell_capacity']})")
+
+        model, params, _ = bench._fit_params(device=dev)
+        run, _, fallback = bench._batch_pipeline(model, params, "stardist", dev, size=size)
+        segs = torch.tensor(frames[:fb, ..., 2].astype(np.float32), device=dev)
+        greens = torch.tensor(frames[:fb, ..., 1].astype(np.float32), device=dev)
+        (_, (scores, stats)), batch_launches, secs = _counted(
+            torch, lambda: run(segs, greens), needed, f"{tag} batch 0 held")
+        n = _check_result(scores, stats, fb)
+        log(f"{tag} batch 0 held: {n} cells, fell back to the exact twin "
+            f"{fallback.calls} time(s)")
+        del segs, greens, model, params, run, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[size] = dict(line=json.loads(line), launches=launches,
+                         batch_launches=batch_launches, peak_gib=res["peak_gib"],
+                         pending_gib=res["pending_gib"], fallback=res["fallback_batches"],
+                         batches_run=runs, geometry_max=top, found=geo["found"],
+                         missed=geo["missed"], peaks_cut=sum(geo["peaks_cut"]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(str(p) for p in sorted(ALL_PHASES)),
@@ -2728,13 +2996,16 @@ def main() -> int:
         clock["at"] = now
 
     try:
-        futures, bench_future = [], None
-        if phases & {7, 8, 9, 10, 13}:
+        futures, bench_future, plate_futures = [], None, {}
+        if phases & {7, 8, 9, 10, 13, 16}:
             import multiprocessing
             from concurrent.futures import ProcessPoolExecutor
 
             pool = ProcessPoolExecutor(max_workers=max(1, min(6, (os.cpu_count() or 2) - 2)),
                                        mp_context=multiprocessing.get_context("spawn"))
+        if 16 in phases:
+            # the 4096^2 row's frames first: phase 2 times the kernels on its first batch
+            plate_futures[4096] = pool.submit(write_plate_frames, tmp_root, 4096)
         if 13 in phases:
             # the bench's 48 frames, one rng stream in one worker, first
             bench_frames = os.path.join(tmp_root, "bench_frames.npy")
@@ -2742,6 +3013,8 @@ def main() -> int:
         if phases & {7, 8, 9, 10}:
             # the sample folders are written while phases 1-3 run
             futures, folders = start_sample_folders(pool, tmp_root)
+        if 16 in phases:
+            plate_futures[2048] = pool.submit(write_plate_frames, tmp_root, 2048)
         if 1 in phases:
             phase_build()
             mark("1")
@@ -2760,8 +3033,14 @@ def main() -> int:
 
             thresh_a = stage_a_buckets(torch, ThresholdBackend(), segs, greens, dict(
                 {k: v for k, v in THRESH_KW.items() if k not in ("chunk", "caps")}, rcap=32))
-            kernels = phase_kernels(torch, dev, unet_vars, main_a, thresh_a)
-            del thresh_a
+            plate_a = None
+            if 16 in phases:
+                t0 = time.perf_counter()
+                plate_a = _plate_batch(torch, dev, plate_futures[4096].result()[0], 4096)
+                log(f"[2] the 4096^2 row's first batch through stage A, its frames made by a "
+                    f"worker process: {time.perf_counter() - t0:.1f} s")
+            kernels = phase_kernels(torch, dev, unet_vars, main_a, thresh_a, plate_a)
+            del thresh_a, plate_a
             mark("2")
         launches, main_result, backend = {}, None, None
         if 3 in phases:
@@ -2835,6 +3114,15 @@ def main() -> int:
         if 15 in phases:
             phase_round_trip(torch, dev, unet_vars, tmp_root)
             mark("15")
+        plates = {}
+        if 16 in phases:
+            segs = greens = params_model = None   # the card's memory for the plates
+            t0 = time.perf_counter()
+            paths = {size: f.result() for size, f in plate_futures.items()}
+            log(f"[16] the rows' frames were made by worker processes; waited "
+                f"{time.perf_counter() - t0:.1f} s more for them")
+            plates = phase_plates(torch, dev, paths)
+            mark("16")
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -2873,7 +3161,12 @@ def main() -> int:
     # threshold label route); `bench_launches`: wrapper calls while
     # phase 13's run_bench ran each backend (two warm-ups of batch 0, two
     # timed runs of 3 batches), `bench_batch_launches`: in one held bench
-    # batch of 16 frames, each counted from 0; `tile_*`: CC and Winograd at the shape of
+    # batch of 16 frames, each counted from 0; `plate_launches`: wrapper calls while
+    # phase 16's run_device_bench ran each plate row (two warm-ups of batch 0, two
+    # timed runs of every batch), `plate_batch_launches`: in its held first batch;
+    # `plate_*`: phase 2 at the 4096^2 row's shapes (Winograd Conv_1 on (2, 4096,
+    # 4096, 32 -> 32), segment sum and CLAHE on the row's first batch);
+    # `tile_*`: CC and Winograd at the shape of
     # one of phase 12's haloed tiles, phase 2 (device ms, bound ms, shape); `ms` is the
     # kernel's device time (torch.profiler), `event_ms` one event-timed
     # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
@@ -2888,6 +3181,9 @@ def main() -> int:
                  dist_launches=dist["launches"][name],
                  bench_launches={b: n[name] for b, n in bench["launches"].items()},
                  bench_batch_launches={b: n[name] for b, n in bench["batch_launches"].items()},
+                 plate_launches={str(size): p["launches"][name] for size, p in plates.items()},
+                 plate_batch_launches={str(size): p["batch_launches"][name]
+                                       for size, p in plates.items()},
                  **kernels[name])
             for name, (src, rep) in meta.items()]
     rows[0].update({k: v for k, v in unet_training.items() if k.startswith("unet_")})

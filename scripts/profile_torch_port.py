@@ -3,13 +3,17 @@
 
     python3 scripts/profile_torch_port.py [--backend stardist|threshold] [--frames 16]
                                           [--size 1024] [--trace PATH] [--src DIR]
-                                          [--capacities bench|screener] [--pipeline N]
+                                          [--capacities bench|screener|plate] [--pipeline N]
+                                          [--bench R]
 
 Screens the bench's synthetic frames (seed 7, 80 cells per 1024^2 frame)
 through `score_frames_fused` at the bench's settings for the backend
 (`--capacities screener`: at the capacities `ProductionMutantScreening`
 uses by default, 1024 candidates, raster cap and cell capacity 512, label
-capacity 1024) once to warm up, then:
+capacity 1024; `--capacities plate`, StarDist: the plate rows' settings,
+`utils/bench.plate_settings(--size)`, on `make_frame_instances` frames,
+e.g. `--frames 2 --size 4096 --cells 1280`, a batch of the 4096^2 row)
+once to warm up, then:
 
 1. times the stages of one batch with a host clock around synchronized
    calls (best of 3), the CLAHE -> resize -> scoring bucket loop being
@@ -32,11 +36,19 @@ capacity 1024) once to warm up, then:
    k+1, then wait k, as the screener does), in turns, best of 3 each, and
    the host's time inside the `start` and the `wait` calls.
 
+`--bench R`, in place of all that: R runs of the screening bench
+(`utils/bench.run_bench`: batches of 16, all started before the first
+wait, two warm-ups, best of 2) for each backend on the frames
+(`--frames 48` is the bench's own workload), each line with its cells,
+seconds, fallbacks and peak memory.
+
 `--frames-npy PATH` keeps the frames between runs.  `--src DIR` profiles
-the `cell_image_analysis_tpu_torch` package of another checkout (an
-earlier commit unpacked with `git archive`), so that two versions can be
-timed in one run on one card; the frames and the segmentation settings
-always come from this script's own checkout.
+(or benches) the `cell_image_analysis_tpu_torch` package of another
+checkout (an earlier commit unpacked with `git archive`), so that two
+versions can be timed in one run on one card; the frames and the
+segmentation settings always come from this script's own checkout.  To
+compare two commits, run parent, change, change, parent in fresh
+processes on the same `--frames-npy`.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -120,11 +132,13 @@ def main() -> int:
     ap.add_argument("--trace", help="write the torch.profiler Chrome trace to this path")
     ap.add_argument("--frames-npy", help="reuse the frames saved at this path (made and saved "
                                          "there when it does not exist)")
-    ap.add_argument("--capacities", choices=("bench", "screener"), default="bench")
+    ap.add_argument("--capacities", choices=("bench", "screener", "plate"), default="bench")
     ap.add_argument("--pipeline", type=int, default=0, metavar="N",
                     help="also time N batches one at a time and with one in flight")
     ap.add_argument("--src", default=REPO,
                     help="checkout whose cell_image_analysis_tpu_torch is profiled")
+    ap.add_argument("--bench", type=int, default=0, metavar="R",
+                    help="instead of profiling, run the screening bench R times a backend")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -134,8 +148,10 @@ def main() -> int:
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
         return 1
     SegConfig = _own_module("_port_config", "cell_image_analysis_tpu_torch/config.py").SegConfig
-    make_frame = _own_module("_port_synthetic",
-                             "cell_image_analysis_tpu_torch/utils/synthetic.py").make_frame
+    synthetic = _own_module("_port_synthetic", "cell_image_analysis_tpu_torch/utils/synthetic.py")
+    plate = args.capacities == "plate"
+    if plate and args.backend != "stardist":
+        ap.error("--capacities plate is the StarDist plate rows'")
     from cell_image_analysis_tpu_torch.io.artifacts import load_scoring_params, load_unet_variables
     from cell_image_analysis_tpu_torch.models.segmentation import (
         StarDistBackend,
@@ -162,15 +178,38 @@ def main() -> int:
         frames = np.load(args.frames_npy)
     else:
         rng = np.random.default_rng(7)
-        frames = np.stack([make_frame(rng, size=args.size, n_cells=args.cells)
-                           for _ in range(args.frames)])
+        if plate:   # utils/bench._make_frames from 2048^2 up
+            frames = np.stack([synthetic.make_frame_instances(rng, size=args.size,
+                                                              n_cells=args.cells)[0]
+                               for _ in range(args.frames)])
+        else:
+            frames = np.stack([synthetic.make_frame(rng, size=args.size, n_cells=args.cells)
+                               for _ in range(args.frames)])
         if args.frames_npy:
             np.save(args.frames_npy, frames)
+    if args.bench:
+        from cell_image_analysis_tpu_torch.utils import bench
+
+        for _ in range(args.bench):
+            for backend in ("stardist", "threshold"):
+                report = {}
+                line = bench.run_bench(n_frames=len(frames), size=args.size, n_cells=args.cells,
+                                       backend=backend, device=dev, frames=frames, report=report)
+                print(f"bench {backend}: {line}; {report['cells']} cells in "
+                      f"{report['seconds']:.4f} s, fell back {report['fallback_batches']} of "
+                      f"{report['batches_run']}, peak {report['peak_gib']:.3f} GiB", flush=True)
+        return 0
     segs = torch.tensor(frames[..., 2].astype(np.float32), device=dev)
     greens = torch.tensor(frames[..., 1].astype(np.float32), device=dev)
     model, params = load_scoring_params(device=dev)
     screener = args.capacities == "screener"   # pipeline/screening.py's defaults
-    if args.backend == "stardist":
+    if plate:
+        own_bench = _own_module("_port_bench", "cell_image_analysis_tpu_torch/utils/bench.py")
+        seg, kw = own_bench.plate_settings(args.size)
+        cfg = SegConfig(**seg)
+        stage_a = {k: kw[k] for k in ("label_capacity", "cell_capacity", "rcap")}
+        backend = StarDistBackend(load_unet_variables(), cfg, device=dev)
+    elif args.backend == "stardist":
         cfg = (SegConfig(raster_cap=512) if screener
                else SegConfig(max_candidates=256, raster_patch=96, raster_cap=128))
         stage_a = (dict(label_capacity=1024, cell_capacity=512, rcap=32) if screener

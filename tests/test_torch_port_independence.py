@@ -8,7 +8,8 @@
   `scripts/clahe_bands.py`, `scripts/cc_split.py`, `scripts/cc_ablate.py`,
   `scripts/probe_torch_profiler.py`, `scripts/probe_bench_order.py`,
   `scripts/dryrun_dist_torch.py`, `scripts/probe_cae_draws.py`,
-  `scripts/probe_plate_cells.py`, `scripts/probe_mesh_f64.py` or
+  `scripts/probe_plate_cells.py`, `scripts/probe_mesh_f64.py`,
+  `scripts/bench_2048_torch.py`, `scripts/bench_4096_torch.py` or
   `bench_torch.py`, imports `jax`, `sklearn`, `pandas` or anything of the JAX package (an AST
   scan, one case a file; `io/keras_interop.py` reads sklearn pickles, whose
   classes the unpickler imports by name); the port's C++ sources include
@@ -53,7 +54,9 @@ _PORT_FILES = sorted(
        os.path.join("scripts", "dryrun_dist_torch.py"),
        os.path.join("scripts", "probe_cae_draws.py"),
        os.path.join("scripts", "probe_plate_cells.py"),
-       os.path.join("scripts", "probe_mesh_f64.py")])
+       os.path.join("scripts", "probe_mesh_f64.py"),
+       os.path.join("scripts", "bench_2048_torch.py"),
+       os.path.join("scripts", "bench_4096_torch.py")])
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "pandas", "cell_image_analysis_tpu")
 _CPP_FILES = sorted(os.path.relpath(p, _REPO) for p in glob.glob(
     os.path.join(_REPO, "cell_image_analysis_tpu_torch", "native", "*.cpp")))

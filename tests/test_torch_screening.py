@@ -30,6 +30,7 @@ from cell_image_analysis_tpu_torch.config import (
     ExtractConfig,
     PipelineConfig,
     SegConfig,
+    capacity_scale,
 )
 from cell_image_analysis_tpu_torch.io.artifacts import load_unet_variables
 from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
@@ -301,7 +302,7 @@ def test_stardist_screener_matches_jax(tmp_path):
 def test_capacities_scale_with_the_frame_area():
     screener = ProductionMutantScreening(STORE, PipelineConfig(), load_unet_variables(),
                                          device="cpu")
-    assert [screener._capacity_scale(h, w) for h, w in ((512, 512), (1024, 1024), (1025, 1024),
+    assert [capacity_scale(h, w) for h, w in ((512, 512), (1024, 1024), (1025, 1024),
                                                        (2048, 2048), (4096, 4096))] \
         == [1, 1, 2, 4, 16]
     fn, kw = screener.fused_arguments(1024, 1024)
