@@ -87,6 +87,9 @@ def add_screen_arguments(p: argparse.ArgumentParser):
     p.add_argument("--no-figures", action="store_true",
                    help="write the CSVs and the report but not the three PNG figures "
                         "(they need matplotlib)")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="screen under torch.profiler: a Chrome trace with the port's spans, "
+                        "and their summary as JSON, written into DIR")
     _add_common(p)
 
 
@@ -160,9 +163,12 @@ def run_train(parser: argparse.ArgumentParser, args, unet_variables) -> int:
 
 def run_screen(parser: argparse.ArgumentParser, args, unet_variables, default_suffix: str):
     """Screen `args.sample` with the models of `args.models`; returns
-    (results, output dir)."""
+    (results, output dir).  With `--trace-dir` the screening runs under
+    `utils.profiler.trace`, and `summary_<pid>.json` (the spans and
+    counters) goes beside the trace."""
     from cell_image_analysis_tpu_torch.config import PipelineConfig
     from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
+    from cell_image_analysis_tpu_torch.utils import profiler
 
     samples = parse_samples(parser, args)
     device, mesh = _device(parser, args)
@@ -171,7 +177,15 @@ def run_screen(parser: argparse.ArgumentParser, args, unet_variables, default_su
     out = args.output or f"./results/{stamp}_{default_suffix}"
     screener = ProductionMutantScreening(args.models, config, unet_variables, device=device,
                                          mesh=mesh)
-    results, _ = screener.screen_mutant_samples(samples, out, figures=not args.no_figures)
+    trace_dir = getattr(args, "trace_dir", None)
+    if trace_dir:
+        profiler.reset()
+    with profiler.trace(trace_dir):
+        results, _ = screener.screen_mutant_samples(samples, out, figures=not args.no_figures)
+    if trace_dir:
+        path = os.path.join(trace_dir, f"summary_{os.getpid()}.json")
+        profiler.write_summary(path)
+        print(f"Trace and span summary written to: {trace_dir}")
     return results, out
 
 

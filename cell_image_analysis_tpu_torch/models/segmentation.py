@@ -36,7 +36,9 @@ from cell_image_analysis_tpu_torch.io.artifacts import resolve_device, unet_stat
 from cell_image_analysis_tpu_torch.models.stardist import predict_instances
 from cell_image_analysis_tpu_torch.models.unet import StarDistUNet
 from cell_image_analysis_tpu_torch.ops.cc import label_components
+from cell_image_analysis_tpu_torch.ops.extract import OVERFLOW_REASONS
 from cell_image_analysis_tpu_torch.ops.percentile import kth_smallest, percentile_ranks
+from cell_image_analysis_tpu_torch.utils.profiler import span
 
 
 def _cross(mask: torch.Tensor, combine) -> torch.Tensor:
@@ -68,7 +70,12 @@ def threshold_mask(seg_channels: torch.Tensor, threshold_percentile: float = 90.
     the six raw order statistics of each frame: the normalization is
     monotone and affine, so the threshold percentile of the normalized
     frame is that map applied to the raw order statistics.  The float32
-    operations run in JAX's order."""
+    operations run in JAX's order.  The span `segmentation.threshold`."""
+    with span("segmentation.threshold"):
+        return _threshold_mask(seg_channels, threshold_percentile, pmin, pmax, opening)
+
+
+def _threshold_mask(seg_channels, threshold_percentile, pmin, pmax, opening):
     x = seg_channels.float()
     B = x.shape[0]
     rk = percentile_ranks(x[0].numel(), (pmin, pmax, threshold_percentile))
@@ -188,8 +195,19 @@ class StarDistBackend:
     @torch.inference_mode()
     def __call__(self, seg_channels: torch.Tensor):
         """(B, H, W) raw channels -> (labels (B, H, W) int32, overflow (B,))."""
+        labels, reasons = self.overflow_reasons(seg_channels)
+        return labels, reasons != 0
+
+    @torch.inference_mode()
+    def overflow_reasons(self, seg_channels: torch.Tensor):
+        """(labels (B, H, W) int32, reasons (B,) int32): the overflow flag
+        as the bits of `ops.extract.OVERFLOW_REASONS` that fired."""
         labels, d = predict_instances(seg_channels, self.model, self.cfg)
-        return labels, d.raster_overflow | d.nms_overflow | d.cand_overflow
+        bit = OVERFLOW_REASONS.index
+        reasons = ((d.cand_overflow.int() << bit("candidates"))
+                   | (d.nms_overflow.int() << bit("nms_pairs"))
+                   | (d.raster_overflow.int() << bit("raster")))
+        return labels, reasons
 
 
 def segment_frame(seg_channels: torch.Tensor, cfg: SegConfig = SegConfig(),

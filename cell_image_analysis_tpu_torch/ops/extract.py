@@ -16,7 +16,8 @@ The regionprops come from one of three routes:
 The static capacities and their truncation are kept exactly: they decide
 which cells survive.  Batched over frames.
 
-`stage_a` picks the route by the segment_fn's flags; `preprocess_buckets`
+`stage_a` picks the route by the segment_fn's flags (`stage_a_reasons`
+also says which capacity fired, `OVERFLOW_REASONS`); `preprocess_buckets`
 is stage B, CLAHE once a size bucket and the resize in chunks, which the
 screening path (`pipeline.scoring`) and the two host-facing forms share:
 
@@ -46,6 +47,13 @@ from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, size_buckets
 from cell_image_analysis_tpu_torch.ops.regionprops import qc_mask, regionprops
 from cell_image_analysis_tpu_torch.ops.resize import resize_cells
 from cell_image_analysis_tpu_torch.ops.runs import regionprops_from_labels, regionprops_from_mask
+from cell_image_analysis_tpu_torch.utils.profiler import count, span
+
+# the overflow reasons of a frame, bit i for OVERFLOW_REASONS[i]: the
+# StarDist backend's candidate cap K, NMS pair budget and raster tile cap,
+# stage A's run table (`rcap`), and a segment_fn's flag that names no
+# capacity (one without `overflow_reasons`)
+OVERFLOW_REASONS = ("candidates", "nms_pairs", "raster", "stage_a", "segmentation")
 
 
 class Candidates(NamedTuple):
@@ -219,26 +227,43 @@ def stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwar
     components, label maps with `runs_props` through the run-length
     regionprops, other label maps through the pixel regionprops.  Returns
     (Candidates, overflow (B,), the segment_fn's masks or label maps)."""
+    cand, reasons, out = stage_a_reasons(segment_fn, segs, greens, candidate_kwargs)
+    return cand, reasons != 0, out
+
+
+def stage_a_reasons(segment_fn, segs: torch.Tensor, greens: torch.Tensor,
+                    candidate_kwargs: dict):
+    """`stage_a` with each frame's overflow reasons in place of its flag:
+    (Candidates, reasons (B,) int32, bit i set where OVERFLOW_REASONS[i]
+    fired, the segment_fn's output).  A segment_fn with `returns_overflow`
+    gives its reasons through `overflow_reasons(segs)` where it has one."""
     kw = dict(candidate_kwargs)
-    out = segment_fn(segs)
-    seg_ovf = None
+    reasons = None
     if getattr(segment_fn, "returns_overflow", False):
-        out, seg_ovf = out
-    if getattr(segment_fn, "returns_mask", False):
-        kw.pop("fg_fraction", None)
-        cand, ovf = extract_candidates_from_mask(out, greens, **kw)
-    elif getattr(segment_fn, "runs_props", False):
-        kw.pop("fg_fraction", None)
-        kw.pop("connectivity", None)
-        cand, ovf = extract_candidates_from_labels_runs(out, greens, **kw)
+        if hasattr(segment_fn, "overflow_reasons"):
+            out, reasons = segment_fn.overflow_reasons(segs)
+        else:
+            out, seg_ovf = segment_fn(segs)
+            reasons = seg_ovf.int() << OVERFLOW_REASONS.index("segmentation")
     else:
-        kw.pop("rcap", None)
-        kw.pop("connectivity", None)
-        cand = extract_candidates(out, greens, **kw)
-        ovf = torch.zeros(segs.shape[0], dtype=torch.bool, device=segs.device)
-    if seg_ovf is not None:
-        ovf = ovf | seg_ovf
-    return cand, ovf, out
+        out = segment_fn(segs)
+    with span("extract.stage_a"):
+        if getattr(segment_fn, "returns_mask", False):
+            kw.pop("fg_fraction", None)
+            cand, ovf = extract_candidates_from_mask(out, greens, **kw)
+        elif getattr(segment_fn, "runs_props", False):
+            kw.pop("fg_fraction", None)
+            kw.pop("connectivity", None)
+            cand, ovf = extract_candidates_from_labels_runs(out, greens, **kw)
+        else:
+            kw.pop("rcap", None)
+            kw.pop("connectivity", None)
+            cand = extract_candidates(out, greens, **kw)
+            ovf = torch.zeros(segs.shape[0], dtype=torch.bool, device=segs.device)
+        code = ovf.int() << OVERFLOW_REASONS.index("stage_a")
+        if reasons is not None:
+            code = code | reasons.int()
+    return cand, code, out
 
 
 def preprocess_buckets(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
@@ -250,17 +275,25 @@ def preprocess_buckets(crops: torch.Tensor, heights: torch.Tensor, widths: torch
     from the host copies `heights_h`, `widths_h`, `valid_h`: no wait on
     the device), then the resize in chunks.  Yields (slot ids (n,) on the
     device, cells (n, out_size, out_size)); the buckets only pad the
-    layout, so the cells do not depend on them."""
+    layout, so the cells do not depend on them.  Each bucket is an
+    `extract.bucket` span (its cap the argument), open while the caller
+    takes its chunks."""
     for idx, cap_b, ns_cap in size_buckets(heights_h, widths_h, valid_h, caps, crops.shape[-1]):
         if idx.numel() == 0:
             continue
-        idx = idx.to(crops.device, non_blocking=True)
-        eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b, clip_limit=clip_limit,
-                              ns_cap=ns_cap)
-        for start in range(0, idx.numel(), chunk):
-            ids = idx[start:start + chunk]
-            yield ids, resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
-                                    out_size=out_size)
+        count(f"cells.bucket_{cap_b}", idx.numel())
+        with span("extract.bucket", arg=cap_b):
+            idx = idx.to(crops.device, non_blocking=True)
+            with span("clahe.bucket"):
+                eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b,
+                                      clip_limit=clip_limit, ns_cap=ns_cap)
+            for start in range(0, idx.numel(), chunk):
+                count("chunks")
+                ids = idx[start:start + chunk]
+                with span("resize.chunk"):
+                    cells = resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
+                                         out_size=out_size)
+                yield ids, cells
 
 
 @torch.inference_mode()

@@ -21,6 +21,7 @@ import math
 import torch
 
 from cell_image_analysis_tpu_torch.ops import gather_rows
+from cell_image_analysis_tpu_torch.utils.profiler import count, span
 
 _N_ANGLES = 24
 _N_RADII = 8
@@ -153,6 +154,7 @@ def overlap_matrix_sparse(centers: torch.Tensor, dists: torch.Tensor, valid: tor
     masked = torch.where(cand, d2, torch.full_like(d2, math.inf)).reshape(B, K * K)
     n_cand = cand.reshape(B, -1).sum(dim=1)
     if max_pairs is None:
+        count("host_waits.pair_count")
         max_pairs = max(1, int(n_cand.max()))
     max_pairs = min(max_pairs, K * K)
     # lax.top_k(-masked): smallest first, lower index first on ties
@@ -200,7 +202,14 @@ def star_nms(centers: torch.Tensor, dists: torch.Tensor, probs: torch.Tensor,
              max_pairs: int | None = 8192):
     """Greedy star-polygon NMS on (B, K) candidates.  Returns the keep mask
     (B, K) and the (B,) pair-budget overflow flag.  `max_pairs=None`: every
-    candidate pair (see `overlap_matrix_sparse`)."""
+    candidate pair (see `overlap_matrix_sparse`).  The span `nms.star_nms`;
+    each round of the fixpoint counts in `nms.iterations` and is one host
+    wait (`host_waits.nms`)."""
+    with span("nms.star_nms"):
+        return _star_nms(centers, dists, probs, valid, nms_thresh, metric, max_pairs)
+
+
+def _star_nms(centers, dists, probs, valid, nms_thresh, metric, max_pairs):
     B, K = probs.shape
     O, overflow = overlap_matrix_sparse(centers, dists, valid, metric=metric,
                                         max_pairs=max_pairs)
@@ -214,6 +223,8 @@ def star_nms(centers: torch.Tensor, dists: torch.Tensor, probs: torch.Tensor,
     while True:
         suppressed = torch.any(sup & keep[:, :, None], dim=1)
         new = valid & ~suppressed
+        count("nms.iterations")
+        count("host_waits.nms")
         if torch.equal(new, keep):
             return keep, overflow
         keep = new

@@ -36,6 +36,7 @@ from cell_image_analysis_tpu_torch.ops.regionprops import (
     segment_bbox_max,
 )
 from cell_image_analysis_tpu_torch.ops.segsum import segment_sums
+from cell_image_analysis_tpu_torch.utils.profiler import count, span
 
 _INF = 1 << 30
 _CHECK_EVERY = 4  # hook sweeps between two convergence checks (JAX's default)
@@ -161,7 +162,13 @@ def _shift_rows(x: torch.Tensor, off: int, fill) -> torch.Tensor:
 def cc_runs(table: RunTable, connectivity: int = 1) -> torch.Tensor:
     """Component-min run ids (r*rcap + j of each component's raster-first
     run) via neighbour-min hooks between the runs of adjacent rows; INF on
-    unused slots.  (B, H, rcap) int32."""
+    unused slots.  (B, H, rcap) int32.  The span `runs.cc`; each check of
+    the fixpoint is one host wait (`host_waits.runs_cc`)."""
+    with span("runs.cc"):
+        return _cc_runs(table, connectivity)
+
+
+def _cc_runs(table: RunTable, connectivity: int) -> torch.Tensor:
     start, end = table.start, table.end
     B, h, rcap = start.shape
     dev = start.device
@@ -189,6 +196,7 @@ def cc_runs(table: RunTable, connectivity: int = 1) -> torch.Tensor:
                 p_n = _shift_rows(new, off, _INF)
                 best = torch.minimum(best, torch.where(ov_n, p_n[..., None, :], _INF).amin(-1))
             new = best
+        count("host_waits.runs_cc")
         if torch.equal(new, p):
             return new
         p = new

@@ -36,6 +36,17 @@ segment_fn returns with `returns_overflow`), the whole batch re-runs
 through `fallback_segment_fn`, the exact twin; without one the port warns
 as JAX does.  The port checks the flags before stage B, JAX after it: the
 result is the same.
+
+Each half is a root span of `utils.profiler` (`scoring.start`,
+`scoring.wait`), and the layers under them are its children: the
+segmentation backend's, `extract.stage_a`, `scoring.copy_out`;
+`scoring.flags`, `scoring.fallback`, one `extract.bucket` a size bucket
+(`clahe.bucket`, `resize.chunk` and `scoring.score_cells` a chunk),
+`scoring.fetch`.  The start half draws the batch id and the handle
+carries it, so both halves' spans share it.  The first B ints of the
+handle's host copy are each frame's overflow reasons, a bitmask
+(`ops.extract.OVERFLOW_REASONS`), nonzero where a capacity flag fired;
+the counters `fallback.batches` and `fallback.<reason>` read it.
 """
 
 from __future__ import annotations
@@ -48,8 +59,13 @@ import torch
 
 from cell_image_analysis_tpu_torch.models.ensemble import ensemble_votes
 from cell_image_analysis_tpu_torch.models.svm import SVMParams, decision_function
-from cell_image_analysis_tpu_torch.ops.extract import preprocess_buckets, stage_a
+from cell_image_analysis_tpu_torch.ops.extract import (
+    OVERFLOW_REASONS,
+    preprocess_buckets,
+    stage_a_reasons,
+)
 from cell_image_analysis_tpu_torch.ops.fft_features import fft_features
+from cell_image_analysis_tpu_torch.utils.profiler import count, new_batch, span
 
 
 class ScoringParams(NamedTuple):
@@ -171,7 +187,7 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
                              greens: torch.Tensor, segment_fn, chunk: int = 256,
                              caps: tuple = (64, 96), min_votes: int = 2, out_size: int = 64,
                              clip_limit: float = 0.02, mesh=None, fallback_segment_fn=None,
-                             **candidate_kwargs) -> dict:
+                             batch_id: int | None = None, **candidate_kwargs) -> dict:
     """The dispatch half of `score_frames_fused`: enqueues segmentation and
     stage A of the batch, begins the copies of the small per-cell arrays
     that the host needs next (overflow flags, heights, widths, valid, the
@@ -187,9 +203,22 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
     single-device half on its shard's device, with the replicas of
     `model`, `params` and `segment_fn` there (`parallel.sharding.replicate`;
     pass them replicated to keep the copies): every shard runs the whole
-    fused body on its own frames, with no exchange between shards."""
+    fused body on its own frames, with no exchange between shards.
+
+    `batch_id` names the batch in the spans (`utils.profiler`); None draws
+    a new one.  A shard's call and a fallback's re-run pass their batch's."""
+    if batch_id is None:
+        batch_id = new_batch()
+        count("batches")
+    with span("scoring.start", batch=batch_id):
+        return _start(model, params, segs, greens, segment_fn, chunk, caps, min_votes, out_size,
+                      clip_limit, mesh, fallback_segment_fn, batch_id, candidate_kwargs)
+
+
+def _start(model, params, segs, greens, segment_fn, chunk, caps, min_votes, out_size,
+           clip_limit, mesh, fallback_segment_fn, batch_id, candidate_kwargs) -> dict:
     common = dict(chunk=chunk, caps=caps, min_votes=min_votes, out_size=out_size,
-                  clip_limit=clip_limit, candidate_kwargs=candidate_kwargs)
+                  clip_limit=clip_limit, candidate_kwargs=candidate_kwargs, batch=batch_id)
     from cell_image_analysis_tpu_torch.parallel.distributed import GlobalMesh, process_local_rows
 
     if isinstance(mesh, GlobalMesh):
@@ -203,7 +232,7 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
                                         caps=caps, min_votes=min_votes, out_size=out_size,
                                         clip_limit=clip_limit, mesh=mesh.local,
                                         fallback_segment_fn=fallback_segment_fn,
-                                        **candidate_kwargs)
+                                        batch_id=batch_id, **candidate_kwargs)
         pend.update(mesh=mesh, segs0=segs, greens0=greens, n_frames=n,
                     offset=mesh.rank * local[0].shape[0])
         return pend
@@ -214,43 +243,52 @@ def score_frames_fused_start(model, params: ScoringParams, segs: torch.Tensor,
         seg_parts, green_parts = shard_batch(mesh, segs), shard_batch(mesh, greens)
         shards = [score_frames_fused_start(m, p, s, g, fn, chunk=chunk, caps=caps,
                                            min_votes=min_votes, out_size=out_size,
-                                           clip_limit=clip_limit, **candidate_kwargs)
+                                           clip_limit=clip_limit, batch_id=batch_id,
+                                           **candidate_kwargs)
                   for m, p, s, g, fn in zip(models, paramss, seg_parts, green_parts, fns)]
         return dict(common, model=model, params=params, segs0=segs, greens0=greens, mesh=mesh,
                     fallback_segment_fn=fallback_segment_fn, shards=shards,
                     n_frames=int(segs.shape[0]))
-    cand, ovf, _ = stage_a(segment_fn, segs, greens, candidate_kwargs)
+    cand, reasons, _ = stage_a_reasons(segment_fn, segs, greens, candidate_kwargs)
     B, ccap, full_cap = cand.crops.shape[:3]
-    flat = [t.reshape(-1) for t in (cand.heights, cand.widths, cand.valid, cand.label_ids,
-                                    cand.area)]
-    # the overflow flags, the slots' ints, each frame's geometry-passing labels
-    ints = _to_host(torch.cat([ovf.reshape(-1).int(), *(t.int() for t in flat),
-                               cand.n_geometry.int()]))
-    floats = _to_host(torch.cat([t.reshape(-1).float() for t in (
-        cand.eccentricity, cand.mean_intensity, cand.std_intensity)]))
-    event = None
-    if segs.device.type == "cuda":
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(segs.device))
+    count("slots", B * ccap)
+    with span("scoring.copy_out"):
+        flat = [t.reshape(-1) for t in (cand.heights, cand.widths, cand.valid, cand.label_ids,
+                                        cand.area)]
+        # each frame's overflow reasons, the slots' ints, each frame's
+        # geometry-passing labels
+        ints = _to_host(torch.cat([reasons.int(), *(t.int() for t in flat),
+                                   cand.n_geometry.int()]))
+        floats = _to_host(torch.cat([t.reshape(-1).float() for t in (
+            cand.eccentricity, cand.mean_intensity, cand.std_intensity)]))
+        event = None
+        if segs.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(segs.device))
+        crops = cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous()
     return dict(
         common, model=model, params=params, segs0=segs, greens0=greens, mesh=None,
-        fallback_segment_fn=fallback_segment_fn,
-        crops=cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous(),
-        heights=flat[0].int(), widths=flat[1].int(), ints=ints, floats=floats, event=event,
-        shape=(B, ccap, full_cap))
+        fallback_segment_fn=fallback_segment_fn, crops=crops, heights=flat[0].int(),
+        widths=flat[1].int(), ints=ints, floats=floats, event=event, shape=(B, ccap, full_cap))
 
 
-def _overflowed(pend: dict) -> bool:
-    """Waits for the handle's host copies; True if a capacity flag fired in
-    any frame of any shard, of any process where the mesh spans them."""
+def _overflowed(pend: dict) -> tuple:
+    """Waits for the handle's host copies; (True if a capacity flag fired
+    in any frame of any shard, of any process where the mesh spans them,
+    the OR of this process's frames' overflow reasons)."""
     from cell_image_analysis_tpu_torch.parallel.distributed import GlobalMesh, any_process
 
     shards = pend.get("shards") or [pend]
+    with span("scoring.flags"):
+        for sh in shards:
+            count("host_waits.flags")
+            if sh["event"] is not None:
+                sh["event"].synchronize()
+    reasons = 0
     for sh in shards:
-        if sh["event"] is not None:
-            sh["event"].synchronize()
-    fired = any(bool(sh["ints"][:sh["shape"][0]].any()) for sh in shards)
-    return any_process(fired) if isinstance(pend["mesh"], GlobalMesh) else fired
+        reasons |= int(np.bitwise_or.reduce(sh["ints"][:sh["shape"][0]].numpy()))
+    fired = reasons != 0
+    return (any_process(fired) if isinstance(pend["mesh"], GlobalMesh) else fired), reasons
 
 
 def _bucket_rows(pend: dict) -> torch.Tensor:
@@ -265,24 +303,32 @@ def _bucket_rows(pend: dict) -> torch.Tensor:
                                          valid_h.bool(), caps=pend["caps"], chunk=pend["chunk"],
                                          out_size=pend["out_size"],
                                          clip_limit=pend["clip_limit"]):
-        rows[ids] = _score_rows(score_cells(pend["model"], pend["params"], cells[..., None],
-                                            min_votes=pend["min_votes"]))
+        with span("scoring.score_cells"):
+            rows[ids] = _score_rows(score_cells(pend["model"], pend["params"],
+                                                cells[..., None], min_votes=pend["min_votes"]))
     return rows
 
 
 def _decode(pend: dict, rows: torch.Tensor) -> tuple:
     """Fetches one device's valid rows (the one fetch): (packed score rows,
-    (n, D) float32, stats dict), both numpy."""
+    (n, D) float32, stats dict), both numpy.  The stats' `bbox_height` and
+    `bbox_width` are the sides of the crop box CLAHE read, from the host
+    copy."""
     B, ccap, _ = pend["shape"]
     N = B * ccap
     ints, floats = pend["ints"], pend["floats"]
-    valid_h, label_ids, area = (ints[B + k * N:B + (k + 1) * N] for k in range(2, 5))
+    heights_h, widths_h, valid_h, label_ids, area = (ints[B + k * N:B + (k + 1) * N]
+                                                     for k in range(5))
     pool = torch.nonzero(valid_h.bool()).flatten()
+    count("slots.valid", pool.numel())
     stats_h = dict(label_ids=label_ids, area=area, eccentricity=floats[:N],
-                   mean_intensity=floats[N:2 * N], std_intensity=floats[2 * N:])
+                   mean_intensity=floats[N:2 * N], std_intensity=floats[2 * N:],
+                   bbox_height=heights_h, bbox_width=widths_h)
     stats = {k: v[pool].numpy() for k, v in stats_h.items()}
     stats["frame_index"] = (pool // ccap).numpy()
-    packed = rows[pool.to(rows.device, non_blocking=True)].cpu().numpy()   # the one fetch
+    with span("scoring.fetch"):
+        count("host_waits.fetch")
+        packed = rows[pool.to(rows.device, non_blocking=True)].cpu().numpy()   # the one fetch
     return packed, stats
 
 
@@ -318,7 +364,7 @@ def _merge_shards(parts: list, b_local: int, n_frames: int, offset: int) -> tupl
     return packed[keep], {k: v[keep] for k, v in stats.items()}
 
 
-_INT_STATS = ("label_ids", "area", "frame_index")
+_INT_STATS = ("label_ids", "area", "frame_index", "bbox_height", "bbox_width")
 
 
 def _gather_processes(packed: np.ndarray, stats: dict) -> tuple:
@@ -346,17 +392,34 @@ def score_frames_fused_wait(pend: dict) -> tuple:
     shard's rows are fetched, and the shards merge with frame offsets; on
     a mesh that spans processes the flags of every process decide, and the
     processes' rows are all-gathered."""
+    with span("scoring.wait", batch=pend.get("batch")):
+        packed, stats = _wait(pend)
+    count("cells.scored", packed.shape[0])
+    return _result(packed, stats)
+
+
+def _wait(pend: dict) -> tuple:
+    """`score_frames_fused_wait`'s (packed rows, stats), numpy."""
     from cell_image_analysis_tpu_torch.parallel.distributed import GlobalMesh
 
-    if _overflowed(pend):
+    fired, reasons = _overflowed(pend)
+    if fired:
         if pend["fallback_segment_fn"] is not None:
+            count("fallback.batches")
+            for bit, name in enumerate(OVERFLOW_REASONS):
+                if reasons >> bit & 1:
+                    count(f"fallback.{name}")
             # the handle keeps the re-run's for `frame_geometry`
-            pend["rerun"] = score_frames_fused_start(
-                pend["model"], pend["params"], pend["segs0"], pend["greens0"],
-                pend["fallback_segment_fn"], chunk=pend["chunk"], caps=pend["caps"],
-                min_votes=pend["min_votes"], out_size=pend["out_size"],
-                clip_limit=pend["clip_limit"], mesh=pend["mesh"], **pend["candidate_kwargs"])
-            return score_frames_fused_wait(pend["rerun"])
+            with span("scoring.fallback"):
+                pend["rerun"] = score_frames_fused_start(
+                    pend["model"], pend["params"], pend["segs0"], pend["greens0"],
+                    pend["fallback_segment_fn"], chunk=pend["chunk"], caps=pend["caps"],
+                    min_votes=pend["min_votes"], out_size=pend["out_size"],
+                    clip_limit=pend["clip_limit"], mesh=pend["mesh"], batch_id=pend["batch"],
+                    **pend["candidate_kwargs"])
+                with span("scoring.wait"):
+                    return _wait(pend["rerun"])
+        count("overflow.no_fallback")
         warnings.warn(
             "score_frames_fused: capacity overflow with no fallback_segment_fn — "
             "candidate extraction may have dropped or corrupted cells; pass "
@@ -365,7 +428,7 @@ def score_frames_fused_wait(pend: dict) -> tuple:
             RuntimeWarning, stacklevel=2)
     shards = pend.get("shards")
     if shards is None:
-        return _result(*_decode(pend, _bucket_rows(pend)))
+        return _decode(pend, _bucket_rows(pend))
     rows = [_bucket_rows(sh) for sh in shards]
     parts = [_decode(sh, r) for sh, r in zip(shards, rows)]
     packed, stats = _merge_shards(parts, shards[0]["shape"][0], pend["n_frames"],
@@ -373,7 +436,7 @@ def score_frames_fused_wait(pend: dict) -> tuple:
     if isinstance(pend["mesh"], GlobalMesh):
         # every process sends, even one that holds padding frames only
         packed, stats = _gather_processes(packed, stats)
-    return _result(packed, stats)
+    return packed, stats
 
 
 def frame_geometry(pend: dict) -> np.ndarray:

@@ -49,7 +49,12 @@ from cell_image_analysis_tpu_torch.pipeline.scoring import (
     score_frames_fused_start,
     score_frames_fused_wait,
 )
-from cell_image_analysis_tpu_torch.utils.profiler import StageTimer, ThroughputMeter
+from cell_image_analysis_tpu_torch.utils.profiler import (
+    StageTimer,
+    ThroughputMeter,
+    counters,
+    counters_report,
+)
 
 _SCORE_CHUNK = 512  # cells a `compute_anomaly_scores` call
 _BATCH_MAX = 16     # frames a fused batch
@@ -371,6 +376,7 @@ class ProductionMutantScreening:
         leaves them out (the one switch for a machine without it)."""
         os.makedirs(output_dir, exist_ok=True)
         print("=== Starting Mutant Screening with Improved Model ===")
+        counted = counters()
         reports.save_run_parameters(output_dir, self.config, {"samples": test_folders_dict})
 
         results: dict = {}
@@ -432,6 +438,7 @@ class ProductionMutantScreening:
         if self.meter.items:
             print(f"\nThroughput: {self.meter.rate:.1f} cells/sec")
         print(self.timer.report())
+        print(counters_report(counters(since=counted)))
         return results, detailed_results
 
     def save_and_visualize_results(self, results, detailed_results, output_dir,

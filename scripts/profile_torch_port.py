@@ -4,7 +4,7 @@
     python3 scripts/profile_torch_port.py [--backend stardist|threshold] [--frames 16]
                                           [--size 1024] [--trace PATH] [--src DIR]
                                           [--capacities bench|screener|plate] [--pipeline N]
-                                          [--bench R]
+                                          [--span-batches 4] [--bench R]
 
 Screens the bench's synthetic frames (seed 7, 80 cells per 1024^2 frame)
 through `score_frames_fused` at the bench's settings for the backend
@@ -22,15 +22,16 @@ once to warm up, then:
    regionprops, QC, crops).  Threshold: `threshold_mask` (order
    statistics, opening), stage A on the mask (run table, hook CC, run
    moments, QC, crops); and, outside the total, stage A of the exact
-   label route (CC kernel, pixel regionprops, QC, crops).  Then the
-   bucket loop is split into its three parts: in three more full runs,
-   every call that `score_frames_fused` makes to a CLAHE function, to
-   `resize_cells` and to `score_cells` (the names its module imports) is
-   wrapped in a synchronized host clock, and each part's sum is kept
-   (best of 3), with the number of CLAHE calls;
-2. traces one full run with `torch.profiler` and prints the device time
-   by kernel, the summed device time against the wall time (the device's
-   busy share), and with `--trace` writes the Chrome trace there;
+   label route (CC kernel, pixel regionprops, QC, crops);
+2. traces `--span-batches` batches with `torch.profiler`, each started
+   before the one before it is waited on (the screener's loop), and
+   prints the device time by kernel, the summed device time against the
+   wall time (the device's busy share), and the port's spans
+   (`utils.profiler`) a batch: calls, host ms, self ms (less the child
+   spans) and device ms (the kernels and copies launched inside the span
+   and no child of it, matched to their launch call by the profiler's
+   correlation ids), with the counters beside; with `--trace` it writes
+   the Chrome trace there;
 3. with `--pipeline N`: screens N batches (the same frames N times) one
    at a time (`wait(start())` each) and with one batch in flight (start
    k+1, then wait k, as the screener does), in turns, best of 3 each, and
@@ -56,6 +57,7 @@ Needs a CUDA device; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import bisect
 import importlib.util
 import os
 import subprocess
@@ -77,50 +79,50 @@ def _own_module(name: str, relpath: str):
     return mod
 
 
-def bucket_loop_split(torch, run, n: int = 3) -> dict:
-    """The bucket loop's parts over n runs of `run()`: each CLAHE, resize
-    and scoring call of `score_frames_fused` timed between two
-    synchronizations, summed by part a run; the best run of each part
-    (ms), and the CLAHE calls of a run."""
-    from cell_image_analysis_tpu_torch.ops import extract
-    from cell_image_analysis_tpu_torch.pipeline import scoring
+def device_ms_by_span(events, names) -> dict:
+    """{span name: device ms} of a profiler session's `events()`: each
+    kernel, copy or fill on the device goes to the innermost span of
+    `names` open when the host called the CUDA runtime to launch it (the
+    call and the device's activity share the profiler's correlation id);
+    those launched outside every span to "(outside the spans)"."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type.name == "CPU" and e.name in names)
+    starts = [sp[0] for sp in spans]
+    # the CUDA API calls (cudaLaunchKernel, cuLaunchKernel, cudaMemcpyAsync, ...)
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type.name == "CPU" and e.name.startswith("cu")}
+    out: dict = {}
+    for e in events:
+        if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False):
+            continue
+        t, owner = launched.get(e.id), "(outside the spans)"
+        if t is None:
+            owner = "(no launch call seen)"
+        else:
+            for i in range(bisect.bisect_right(starts, t) - 1, -1, -1):
+                if spans[i][1] >= t:      # nested: the latest start that holds t
+                    owner = spans[i][2]
+                    break
+        out[owner] = out.get(owner, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3
+    return out
 
-    # the loop's calls, in the module that makes them (a checkout's bucket
-    # loop lives in pipeline/scoring or, since its split, in ops/extract)
-    parts = {}
-    for module in (scoring, extract):
-        for name in vars(module):
-            if name.startswith("clahe") or name == "resize_cells":
-                parts[(module, name)] = "CLAHE" if name.startswith("clahe") else "resize"
-    parts[(scoring, "score_cells")] = "scoring"
-    originals = {key: getattr(*key) for key in parts}
-    acc = {}
 
-    def wrap(key):
-        def timed_call(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = originals[key](*args, **kw)
-            torch.cuda.synchronize()
-            part = parts[key]
-            acc[part] = acc.get(part, 0.0) + (time.perf_counter() - t0) * 1e3
-            acc[part + " calls"] = acc.get(part + " calls", 0) + 1
-            return out
-        return timed_call
-
-    best = {}
-    try:
-        for key in parts:
-            setattr(*key, wrap(key))
-        for _ in range(n):
-            acc.clear()
-            run()
-            best = {k: min(v, best.get(k, v)) for k, v in acc.items()}
-    finally:
-        for (module, name), fn in originals.items():
-            setattr(module, name, fn)
-    return {"CLAHE": best["CLAHE"], "resize": best["resize"], "scoring": best["scoring"],
-            "launches of CLAHE": best["CLAHE calls"]}
+def print_span_table(prof, summary: dict) -> None:
+    """The spans a batch (host, self and device ms) and the counters."""
+    n = max(summary["batches"], 1)
+    dev = device_ms_by_span(prof.events(), set(summary["spans"]))
+    print(f"spans a batch ({summary['batches']} batches; ms):")
+    print(f"  {'span':28s} {'calls':>7s} {'host':>9s} {'self':>9s} {'device':>9s}")
+    rows = sorted(summary["spans"].items(), key=lambda kv: -kv[1]["host_ms"])
+    for name, sp in rows:
+        print(f"  {name:28s} {sp['calls'] / n:7.2f} {sp['host_ms'] / n:9.2f} "
+              f"{sp['self_ms'] / n:9.2f} {dev.get(name, 0.0) / n:9.2f}")
+    for other in ("(outside the spans)", "(no launch call seen)"):
+        if other in dev:
+            print(f"  {other:28s} {'':7s} {'':9s} {'':9s} {dev[other] / n:9.2f}")
+    print("counters a batch:")
+    for name, c in sorted(summary["counters"].items()):
+        print(f"  {name:28s} {c / n:9.2f}")
 
 
 def main() -> int:
@@ -135,6 +137,8 @@ def main() -> int:
     ap.add_argument("--capacities", choices=("bench", "screener", "plate"), default="bench")
     ap.add_argument("--pipeline", type=int, default=0, metavar="N",
                     help="also time N batches one at a time and with one in flight")
+    ap.add_argument("--span-batches", type=int, default=4, metavar="B",
+                    help="batches in the profiled run (the span table's)")
     ap.add_argument("--src", default=REPO,
                     help="checkout whose cell_image_analysis_tpu_torch is profiled")
     ap.add_argument("--bench", type=int, default=0, metavar="R",
@@ -237,11 +241,11 @@ def main() -> int:
 
     twin = Twin(backend.exact_twin())
 
+    fused_kw = dict(chunk=32, caps=(64, 96), fallback_segment_fn=twin, **stage_a,
+                    **({} if args.backend == "stardist" else {"fg_fraction": 0.12}))
+
     def full():
-        return score_frames_fused(model, params, segs, greens, backend, chunk=32,
-                                  caps=(64, 96), fallback_segment_fn=twin,
-                                  **stage_a, **({} if args.backend == "stardist"
-                                                else {"fg_fraction": 0.12}))
+        return score_frames_fused(model, params, segs, greens, backend, **fused_kw)
 
     def timed(fn, n=3):
         out, best = None, float("inf")
@@ -272,7 +276,6 @@ def main() -> int:
     fallback_runs.clear()
     (scores, stats), t_full = timed(full)
     n_fallback = len(fallback_runs) // 3
-    split = bucket_loop_split(torch, full)
     n = len(stats["area"])
     print(f"{args.backend}, {args.capacities} capacities: batch of {args.frames} x "
           f"{args.size}^2, {n} cells (best of 3, ms):")
@@ -283,10 +286,6 @@ def main() -> int:
     print(f"  runs through the exact twin in a full run (an overflow flag fired): {n_fallback}"
           + ("; the loop's remainder and the total include that second run" if n_fallback
              else ""))
-    print(f"  bucket loop by part, each call synchronized "
-          f"({split.pop('launches of CLAHE')} CLAHE launches):")
-    for name, t in split.items():
-        print(f"    {name:30s} {t:9.2f}")
     if args.backend == "threshold":
         print(f"  exact label route, outside the total: threshold_segment {t_lab:.2f} ms "
               f"(threshold mask + CC kernel + compaction), stage A {t_la:.2f} ms "
@@ -294,26 +293,53 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from cell_image_analysis_tpu_torch.pipeline.scoring import (
+        score_frames_fused_start,
+        score_frames_fused_wait,
+    )
+    try:
+        from cell_image_analysis_tpu_torch.utils import profiler
+        profiler.summary
+    except AttributeError:      # a checkout (--src) whose package has no spans
+        profiler = None
+
+    def start():
+        return score_frames_fused_start(model, params, segs, greens, backend, **fused_kw)
+
+    if profiler is not None:
+        profiler.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        full()
+        pending = start()
+        for _ in range(args.span_batches - 1):
+            nxt = start()
+            score_frames_fused_wait(pending)
+            pending = nxt
+        score_frames_fused_wait(pending)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"profiled run: wall {wall:.2f} ms, device kernel time {dev_ms:.2f} ms "
-          f"(busy {100 * dev_ms / wall:.1f}%, idle {100 - 100 * dev_ms / wall:.1f}%)")
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
-                                    max_name_column_width=60))
+    # a span's range is an annotation on both timelines, not work: the
+    # kernel table and the device total leave them out
+    averages = prof.key_averages()
+    ops = type(averages)([e for e in averages if not getattr(e, "is_user_annotation", False)],
+                         use_device="cuda")
+    dev_ms = sum(e.self_device_time_total for e in ops if e.device_type.name == "CUDA") / 1e3
+    print(f"profiled run of {args.span_batches} batches: wall {wall:.2f} ms, device kernel "
+          f"time {dev_ms:.2f} ms (busy {100 * dev_ms / wall:.1f}%, "
+          f"idle {100 - 100 * dev_ms / wall:.1f}%)")
+    print(ops.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+    if profiler is None:
+        print("the profiled package records no spans")
+    else:
+        print_span_table(prof, profiler.summary())
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
     if args.pipeline:
         pipeline_times(torch, args.pipeline, n, lambda: dict(
-            model=model, params=params, segs=segs, greens=greens, segment_fn=backend, chunk=32,
-            caps=(64, 96), fallback_segment_fn=twin, **stage_a,
-            **({} if args.backend == "stardist" else {"fg_fraction": 0.12})))
+            model=model, params=params, segs=segs, greens=greens, segment_fn=backend,
+            **fused_kw))
     return 0
 
 
