@@ -39,12 +39,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# C signatures of the entry points (all return cudaError_t as int)
+# C signatures of the entry points (all return an int: cudaError_t, or a size)
 _SIGNATURES = {
     "cia_winograd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cia_segment_sum_i64": [_P, _P, _P, _L, _I, _I, _P],
     "cia_clahe_cells": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
     "cia_cc_label_components": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cia_kthvalue_radix": [_P, _L, _I, _I, _P, _I, _P, _I, _P, _L, _P, _P],
+    "cia_kthvalue_radix_scratch_words": [_I, _I],
 }
 
 HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host_native")

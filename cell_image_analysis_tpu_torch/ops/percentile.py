@@ -1,11 +1,14 @@
 """Percentile normalization (csbdeep.utils.normalize semantics).
 
 Counterpart of `cell_image_analysis_tpu/ops/percentile.py`:
-`normalize_percentile` takes exact order statistics (`kth_smallest`, on
-`torch.kthvalue`) at the ranks numpy's linear-interpolation percentile
-uses, computed in python float64 (`percentile_ranks`), and lerps them in
-float32.  JAX selects them with a sort-free bisection; the values are the
-same.
+`normalize_percentile` takes exact order statistics (`kth_smallest`) at
+the ranks numpy's linear-interpolation percentile uses, computed in python
+float64 (`percentile_ranks`), and lerps them in float32.  JAX selects them
+with a sort-free bisection; the port with a radix select over the float's
+order-preserving uint32 key, three digits from the top (11, 11 and 10
+bits): on the card the kernel `csrc/kthvalue_radix.cu`, on the CPU its
+plain version `kth_smallest_plain`, the same digit passes with
+`torch.bincount`.  The values are the same.
 
 `percentile` (any q, any axis), `masked_percentile` (over the masked
 elements) and `median_iqr` (the RobustScaler's fit) sort, as JAX's do, and do JAX's rank arithmetic in float32: the index
@@ -24,6 +27,12 @@ import math
 import numpy as np
 import torch
 
+from cell_image_analysis_tpu_torch.utils.profiler import count
+
+# (shift, bits) of the key's digits, top first: the kernel's three passes
+RADIX_DIGITS = ((21, 11), (10, 11), (0, 10))
+NAN_KEY = 0xFFC00000  # every NaN's key: above +inf's (0xFF800000), as torch orders NaN
+
 
 def percentile_ranks(n: int, qs: tuple) -> list:
     """(k_lo, k_hi, frac) triples of numpy's linear-interpolation percentile
@@ -37,13 +46,77 @@ def percentile_ranks(n: int, qs: tuple) -> list:
     return out
 
 
+def radix_keys(flat: torch.Tensor) -> torch.Tensor:
+    """The order-preserving uint32 key of each float32 element, as int64:
+    a negative float's bits flipped, a positive float's sign bit set, every
+    NaN `NAN_KEY`."""
+    u = flat.view(torch.int32).long() & 0xFFFFFFFF
+    key = torch.where(u >= 2 ** 31, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return torch.where(torch.isnan(flat), NAN_KEY, key)
+
+
+def key_values(key: torch.Tensor) -> torch.Tensor:
+    """The float32 of each int64 key (`radix_keys`' inverse; NaN's key
+    reads as 0x7FC00000)."""
+    u = torch.where(key >= 2 ** 31, key & 0x7FFFFFFF, key ^ 0xFFFFFFFF)
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
+
+
+def kth_smallest_plain(flat: torch.Tensor, ks: tuple) -> torch.Tensor:
+    """The plain version of the kernel (same contract as `kth_smallest` on
+    (B, N) float32): for each digit, top first, the histogram of the digit
+    over the elements whose higher digits match the prefix found so far for
+    a rank (ranks with one prefix share a histogram); the bin where the
+    running count passes the rank extends its prefix, and the rank within
+    the bin carries to the next digit."""
+    B = flat.shape[0]
+    distinct = list(dict.fromkeys(ks))
+    R = len(distinct)
+    keys = radix_keys(flat)
+    frame = torch.arange(B, device=flat.device)[:, None]
+    prefix = torch.zeros((B, R), dtype=torch.int64, device=flat.device)
+    rank = torch.tensor(distinct, dtype=torch.int64, device=flat.device).expand(B, R)
+    row = torch.zeros_like(keys)   # the first digit: every element, one row a frame
+    for shift, bits in RADIX_DIGITS:
+        # each rank's row: the first rank with its prefix
+        owner = (prefix[:, :, None] == prefix[:, None, :]).int().argmax(dim=2)
+        if shift + bits < 32:
+            hi = keys >> (shift + bits)
+            row = torch.full_like(keys, -1)
+            for r in range(R):
+                row = torch.where((hi == prefix[frame, r]) & (owner[frame, r] == r), r, row)
+            # the elements that no rank's prefix matches leave for good (the
+            # kernel reads them again and skips them)
+            sel = row >= 0
+            keys, frame, row = keys[sel], frame.expand_as(sel)[sel], row[sel]
+        digit = (keys >> shift) & ((1 << bits) - 1)
+        hist = torch.bincount((((frame * R + row) << bits) | digit).reshape(-1),
+                              minlength=(B * R) << bits).reshape(B, R, 1 << bits)
+        h = hist.gather(1, owner[:, :, None].expand(B, R, 1 << bits))
+        cum = h.cumsum(2)
+        d = torch.searchsorted(cum, rank[:, :, None].contiguous(), right=True)
+        rank = rank - (cum.gather(2, d) - h.gather(2, d))[:, :, 0]
+        prefix = (prefix << bits) | d[:, :, 0]
+    return key_values(prefix)[:, [distinct.index(k) for k in ks]]
+
+
 def kth_smallest(x: torch.Tensor, ks: tuple) -> torch.Tensor:
     """The k-th smallest elements (0-based ranks `ks`) of each leading-dim
-    slice of x (B, ...) -> (B, len(ks)) float32; a rank repeated is
-    selected once."""
+    slice of x (B, ...) -> (B, len(ks)) float32, bit for bit the elements
+    `torch.kthvalue` selects (but for the sign of a zero tied with its
+    opposite: -0.0 orders below +0.0); a rank repeated is selected once.
+    The kernel on a CUDA tensor (no host synchronisation), the plain
+    version on a CPU tensor.  Counts the frames (`percentile.frames`)."""
     flat = x.reshape(x.shape[0], -1).float()
-    vals = {k: torch.kthvalue(flat, k + 1, dim=1).values for k in dict.fromkeys(ks)}
-    return torch.stack([vals[k] for k in ks], dim=1)
+    n = flat.shape[1]
+    if not all(0 <= k < n for k in ks):
+        raise ValueError(f"kth_smallest: ranks {ks} outside [0, {n})")
+    count("percentile.frames", flat.shape[0])
+    if flat.device.type == "cpu":
+        return kth_smallest_plain(flat, ks)
+    from cell_image_analysis_tpu_torch.ops.cuda.kthvalue import kth_smallest_cuda
+
+    return kth_smallest_cuda(flat, ks)
 
 
 def percentile_select(x: torch.Tensor, qs: tuple) -> torch.Tensor:

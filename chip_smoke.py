@@ -28,9 +28,12 @@ Phases (any failure exits non-zero before the last line is printed):
    then on 1024^2 structural masks (all-true, a full-frame serpentine,
    random at 0.59 density) at connectivity 1 and 2: equal to labels
    derived from `scipy.ndimage.label` on the host; the device time of
-   CC and Winograd at the shapes of phase 12's haloed tiles; and, with
-   phase 16, at the 4096^2 plate row's shapes: Winograd's Conv_1 on (2,
-   4096, 4096, 32 -> 32) within 1e-5 of cuDNN, segment sum and CLAHE on
+   CC and Winograd at the shapes of phase 12's haloed tiles; the radix
+   select (`kth_smallest`) on the 16 frames at the normalization's 4
+   ranks and the threshold's 6, bit-equal to its plain version and to
+   torch.kthvalue (the library call); and, with phase 16, at the 4096^2
+   plate row's shapes: Winograd's Conv_1 on (2, 4096, 4096, 32 -> 32)
+   within 1e-5 of cuDNN, segment sum, CLAHE and the select (4 ranks) on
    the row's first batch (its frames made by a worker process that starts
    with the smoke) bit-equal (every profiler time of the run is taken
    here);
@@ -575,6 +578,44 @@ def _segsum_check(torch, dev, table: tuple, what: str) -> dict:
                 library_ms=t_l, shape=list(data.shape))
 
 
+def _kthvalue_check(torch, segs, qs: tuple, what: str) -> dict:
+    """The radix select on frames as `normalize_percentile` (qs 3, 99.8) or
+    `threshold_mask` (3, 99.8, 90) take them, at those ranks: bit-equal to
+    its plain version and to torch.kthvalue; its device time, the
+    event-timed call, the plain version's and torch.kthvalue's times (the
+    library call, once a distinct rank) and its bound, each frame read
+    once."""
+    from cell_image_analysis_tpu_torch.ops.cuda.kthvalue import kth_smallest_cuda
+    from cell_image_analysis_tpu_torch.ops.percentile import kth_smallest_plain, percentile_ranks
+
+    flat = segs.reshape(segs.shape[0], -1).float()
+    B, n = flat.shape
+    ks = tuple(k for r in percentile_ranks(n, qs) for k in r[:2])
+
+    def library():
+        return [torch.kthvalue(flat, k + 1, dim=1).values for k in dict.fromkeys(ks)]
+
+    got = kth_smallest_cuda(flat, ks)
+    ref = kth_smallest_plain(flat, ks)
+    lib = dict(zip(dict.fromkeys(ks), library()))
+    lib = torch.stack([lib[k] for k in ks], dim=1)
+    torch.cuda.synchronize()
+    for other, name in ((ref, "its plain version"), (lib, "torch.kthvalue")):
+        if not torch.equal(got.view(torch.int32), other.view(torch.int32)):
+            raise AssertionError(f"[2] kthvalue_radix on {what}: differs from {name}")
+    t_d = device_ms(lambda: kth_smallest_cuda(flat, ks), ("kthvalue",))
+    t_k = time_ms(lambda: kth_smallest_cuda(flat, ks))
+    t_p = time_ms(lambda: kth_smallest_plain(flat, ks), n=3)
+    t_l = time_ms(library, n=3)
+    b_ms, b_by = bound(B * n * 4)
+    log(f"[2] kthvalue_radix on {what} ({B}, {n}), ranks {ks}: bit-equal to its plain version "
+        f"and torch.kthvalue; kernels device {t_d:.4f} ms, wrapper call {t_k:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / t_d:.1f}% of it; plain {t_p:.3f} ms, "
+        f"torch.kthvalue {t_l:.3f} ms")
+    return dict(ms=t_d, event_ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_l, shape=[B, n], ranks=len(ks))
+
+
 def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
     from cell_image_analysis_tpu_torch.ops.cc import (
@@ -684,6 +725,13 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
         del got, ref, raw
     for name, tile in _tile_times(torch, dev, masks, unet_vars).items():
         res[name].update(tile)
+
+    # the radix select on the 16 frames: StarDist's normalization, the threshold's six ranks
+    row = _kthvalue_check(torch, main["segs"], (3.0, 99.8), "the 16 frames")
+    thr = _kthvalue_check(torch, main["segs"], (3.0, 99.8, 90.0), "the 16 frames, threshold")
+    res["kthvalue_radix"] = dict(max_abs_err=0.0, **row, threshold_ms=thr["ms"],
+                                 threshold_event_ms=thr["event_ms"],
+                                 threshold_library_ms=thr["library_ms"])
     _cc_structural(torch, dev)
     if plate is not None:
         del masks
@@ -771,10 +819,10 @@ def make_frames(torch, dev) -> tuple:
 
 
 def _kernel_modules():
-    from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum, winograd
+    from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, kthvalue, segsum, winograd
 
     return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_cells": clahe_kernel,
-            "cc_tile_labels": cc}
+            "cc_tile_labels": cc, "kthvalue_radix": kthvalue}
 
 
 def _reset_launches() -> None:
@@ -824,7 +872,8 @@ def phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens,
         f"({n_frames / t_run:.2f} frames/s)")
     if bool(backend.overflow.any()):
         raise AssertionError("a segmentation overflow flag is set on the smoke frames")
-    missing = [k for k in ("winograd_conv3x3", "segment_sum", "clahe_cells") if launches[k] <= 0]
+    missing = [k for k in ("winograd_conv3x3", "segment_sum", "clahe_cells", "kthvalue_radix")
+               if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels of the path were not launched: {missing}")
     if launches["clahe_cells"] > n_buckets:
@@ -2478,7 +2527,7 @@ def _dist_launches(results: list, key: str, needed: tuple) -> dict:
     """Each worker's launches in its timed run, by the kernels' row names;
     fails if a worker did not launch a kernel of `needed`."""
     names = {"winograd": "winograd_conv3x3", "segsum": "segment_sum",
-             "clahe_kernel": "clahe_cells", "cc": "cc_tile_labels"}
+             "clahe_kernel": "clahe_cells", "cc": "cc_tile_labels", "kthvalue": "kthvalue_radix"}
     per = [{names[k]: v for k, v in r[key]["launches"].items()} for r in results]
     for r, launches in enumerate(per):
         missing = [k for k in needed if launches[k] <= 0]
@@ -2760,7 +2809,7 @@ def _plate_batch(torch, dev, frames_path: str, size: int) -> dict:
     cand_kw = {k: kw[k] for k in ("label_capacity", "cell_capacity", "rcap")}
     out = stage_a_buckets(torch, backend, segs, greens, cand_kw)
     with torch.inference_mode():
-        out.update(labels=backend(segs)[0], settings=(seg, kw))
+        out.update(labels=backend(segs)[0], settings=(seg, kw), segs=segs)
     return out
 
 
@@ -2811,6 +2860,9 @@ def _plate_times(torch, dev, unet_vars, plate: dict) -> dict:
     table = run_moment_table(plate["labels"], capacity=kw["label_capacity"], rcap=kw["rcap"])
     res["segment_sum"] = {f"plate_{k}": v for k, v in _segsum_check(
         torch, dev, table, "the 4096^2 row's first batch").items() if k != "bound_by"}
+    res["kthvalue_radix"] = {f"plate_{k}": v for k, v in _kthvalue_check(
+        torch, plate["segs"], (3.0, 99.8), "the 4096^2 row's first batch").items()
+        if k != "bound_by"}
     row = _clahe_buckets(torch, plate, "4096^2 row's first batch")
     res["clahe_cells"] = dict(plate_cells=sum(int(ids.numel()) for ids, _, _ in plate["buckets"]),
                               plate_ms=row["ms"], plate_event_ms=row["event_ms"],
@@ -3145,6 +3197,9 @@ def main() -> int:
                         "cell_image_analysis_tpu/ops/pallas/clahe_kernel.py:184"),
         "cc_tile_labels": ("csrc/cc_tile_labels.cu",
                            "cell_image_analysis_tpu/ops/pallas/cc_kernel.py:80"),
+        "kthvalue_radix": ("csrc/kthvalue_radix.cu",
+                           "no Pallas kernel: torch.kthvalue, for the XLA bisection of "
+                           "cell_image_analysis_tpu/ops/percentile.py"),
     }
     # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
     # phase 5 (b), the label route); `launches_per_batch`: the kernel
@@ -3165,11 +3220,12 @@ def main() -> int:
     # phase 16's run_device_bench ran each plate row (two warm-ups of batch 0, two
     # timed runs of every batch), `plate_batch_launches`: in its held first batch;
     # `plate_*`: phase 2 at the 4096^2 row's shapes (Winograd Conv_1 on (2, 4096,
-    # 4096, 32 -> 32), segment sum and CLAHE on the row's first batch);
+    # 4096, 32 -> 32), segment sum, CLAHE and the select on the row's first batch);
     # `tile_*`: CC and Winograd at the shape of
     # one of phase 12's haloed tiles, phase 2 (device ms, bound ms, shape); `ms` is the
     # kernel's device time (torch.profiler), `event_ms` one event-timed
-    # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a)
+    # wrapper call; CLAHE's `threshold_*`: the threshold path, phase 5 (a);
+    # the select's `threshold_*`: its 6 ranks on the 16 frames, phase 2
     modules = _kernel_modules()
     rows = [dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=rep,
                  launches=launches[name],

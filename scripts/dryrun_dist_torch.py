@@ -71,7 +71,7 @@ FUSED_KW = dict(chunk=8, cell_capacity=16, label_capacity=64)
 # frame 4 alone overflows (the second of two processes' first frame)
 OVERFLOW_SIZE, OVERFLOW_KW = 256, dict(chunk=16, cell_capacity=32, rcap=6, label_capacity=1024)
 CHECKS = ("counts", "score_cells", "fused")
-KERNELS = ("winograd", "segsum", "clahe_kernel", "cc")
+KERNELS = ("winograd", "segsum", "clahe_kernel", "cc", "kthvalue")
 
 
 def free_port() -> int:
