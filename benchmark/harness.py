@@ -4,7 +4,8 @@ check against the reference, the metrics and the result line.
 Everything that belongs to one configuration, traffic mix, cell or metric
 is data found by name: `BENCHMARK.json` at the root, `configs/<config>.json`
 (named by the manifest), `traffic/<traffic>.json`,
-`workloads/<cell>.json` and `metrics/<metric>.py` under this folder.
+`workloads/<cell>.json`, `metrics/<metric>.py` and the segmentation
+backend's `backends/<backend>/` under this folder.
 """
 
 from __future__ import annotations
@@ -182,10 +183,11 @@ def measure(c: SimpleNamespace, seed: int, seconds: float, traced: bool, device,
     """One run of the cell `c` (from `load_cell`) on `device`; returns the
     result line as a dict.  `system_factory(config, workload, root,
     device)` builds the system under test (default: `program.System`)."""
-    from benchmark import check, program, work
+    from benchmark import backends, check, program, work
     from benchmark.reference.screen import Reference
     from benchmark.traffic.frames import batch_draws, make_pool
 
+    backends.directory(c.config["segmentation"]["backend"])
     cuda = device.type == "cuda"
     clock = {"start": process_seconds()}
     pool = make_pool(c.traffic, workers=pool_workers)
@@ -204,15 +206,19 @@ def measure(c: SimpleNamespace, seed: int, seconds: float, traced: bool, device,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
+    counted = system.counters()
     batches = loop.run(seconds=seconds)
+    counted = system.counters(since=counted)
     _sync(device)
     window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     window_s = batches[-1]["t_end"] - batches[0]["t_start"]
 
-    red, traced_batches = None, []
+    red, traced_batches, spans = None, [], None
     if traced:
+        system.reset_record()
         tb, red = traced_window(loop, c.workload["trace_batches"], device)
         traced_batches = [{k: v for k, v in b.items() if k != "result"} for b in tb]
+        spans = system.span_summary()
     memory_peak = max(setup_peak, window_peak,
                       torch.cuda.max_memory_allocated(device) if cuda else 0)
     clock["window_end"] = process_seconds()
@@ -235,7 +241,7 @@ def measure(c: SimpleNamespace, seed: int, seconds: float, traced: bool, device,
     ctx = SimpleNamespace(config=c.config, traffic=c.traffic, workload=c.workload,
                           device_type=device.type, seconds=window_s, batches=batches, setup_s=setup_s,
                           window_peak_bytes=window_peak, trace=red,
-                          traced_batches=traced_batches)
+                          traced_batches=traced_batches, counters=counted, spans=spans)
     metrics = {}
     for m in (c.per_layer if traced else c.end_to_end):
         value = metric_reader(m["name"])(ctx)

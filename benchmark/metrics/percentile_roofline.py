@@ -1,6 +1,9 @@
 """percentile_roofline: reading each traced frame's segmentation channel
 once at the HBM peak (work.percentile_least_seconds) over the device
-time of torch.kthvalue's kernels (`gatherKthValue`, `kthvalue`), in %."""
+time of the port's radix select (csrc/kthvalue_radix.cu: its kernels
+`kthvalue_radix_init` and `kthvalue_radix_pass<0..2>`, which the needle
+`kthvalue` finds; `gatherKthValue` is torch.kthvalue's, which the port
+called before), in %."""
 
 from benchmark import trace, work
 

@@ -1,19 +1,23 @@
 """The system under test: the port's screening entry, built from a
 configuration and a cell's capacities.
 
-This is the only module of the benchmark that imports the program
+This module and the backends' `backends/<backend>/system.py` are the
+modules of the benchmark that import the program
 (`cell_image_analysis_tpu_torch`).  It builds what `cli screen` builds for
-every batch: the segmentation backend over the weight files, the scoring
-state, and `score_frames_fused_start` / `score_frames_fused_wait` with the
+every batch: the segmentation backend that the configuration names
+(`backends/<backend>/system.py`) over its weight files, the scoring state,
+and `score_frames_fused_start` / `score_frames_fused_wait` with the
 backend's `exact_twin()` as the overflow fallback, behind a counter that
-the benchmark owns.
+the benchmark owns.  The port's counters and span record
+(`utils/profiler`) are read through it too.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from benchmark.reference.models import checked_bytes
+from benchmark import backends
+from benchmark.reference.models import checked_weights
 
 
 class CountedFallback:
@@ -37,33 +41,18 @@ class System:
     `fallback.calls` counts the batches re-run through the exact twin."""
 
     def __init__(self, config: dict, workload: dict, root: str, device):
-        from cell_image_analysis_tpu_torch.config import SegConfig
-        from cell_image_analysis_tpu_torch.io.artifacts import (
-            load_unet_variables,
-            scoring_params_from_numpy,
-        )
-        from cell_image_analysis_tpu_torch.models.segmentation import (
-            StarDistBackend,
-            ThresholdBackend,
-        )
+        from cell_image_analysis_tpu_torch.io.artifacts import scoring_params_from_numpy
         from cell_image_analysis_tpu_torch.pipeline import scoring
+        from cell_image_analysis_tpu_torch.utils import profiler
 
         self._start, self._wait = scoring.score_frames_fused_start, scoring.score_frames_fused_wait
+        self._profiler = profiler
         seg = dict(config["segmentation"], **workload["segmentation"])
-        seg["grid"] = tuple(seg.get("grid", (2, 2)))
-        cfg = SegConfig(**seg)
-        wts = config["weights"]
-        for key in ("unet", "scoring"):
-            if key in wts:
-                checked_bytes(f"{root}/{wts[key]}", wts[f"{key}_sha256"])
-        if cfg.backend == "stardist":
-            backend = StarDistBackend(load_unet_variables(f"{root}/{wts['unet']}"), cfg,
-                                      device=device)
-        else:
-            backend = ThresholdBackend(cfg)
-        self.backend = backend
-        self.fallback = CountedFallback(backend.exact_twin())
-        with np.load(f"{root}/{wts['scoring']}") as z:
+        build = backends.module(seg["backend"], "system").build
+        paths = checked_weights(config["weights"], root)
+        self.backend = build(seg, {k: p for k, p in paths.items() if k != "scoring"}, device)
+        self.fallback = CountedFallback(self.backend.exact_twin())
+        with np.load(paths["scoring"]) as z:
             self.model, self.params = scoring_params_from_numpy({k: z[k] for k in z.files},
                                                                 device=device)
         sc, fused = config["scoring"], dict(workload["fused"])
@@ -77,6 +66,18 @@ class System:
 
     def wait(self, handle: dict) -> tuple:
         return self._wait(handle)
+
+    def counters(self, since: dict | None = None) -> dict:
+        """The port's counters (`utils/profiler.counters`), less `since`."""
+        return self._profiler.counters(since)
+
+    def reset_record(self) -> None:
+        """Clears the port's span record and counters."""
+        self._profiler.reset()
+
+    def span_summary(self) -> dict:
+        """The port's recorded spans by name (`utils/profiler.summary`)."""
+        return self._profiler.summary()["spans"]
 
     def warm_twin(self, segs, greens) -> tuple:
         """One batch through the exact twin, as a fallback runs it."""

@@ -28,9 +28,22 @@ def checked_bytes(path: str, sha256: str) -> bytes:
     return data
 
 
-def load_unet(path: str, sha256: str, device) -> dict:
-    """{'Conv_i': (OIHW weight, bias)} float32 tensors on `device`."""
-    payload = pickle.loads(checked_bytes(path, sha256))
+def checked_weights(weights: dict, root: str) -> dict:
+    """{key: path under `root`} of each key of a configuration's `weights`
+    that has a `<key>_sha256` beside it, each file's sha256 checked."""
+    paths = {}
+    for key, rel in weights.items():
+        if f"{key}_sha256" in weights:
+            paths[key] = f"{root}/{rel}"
+            checked_bytes(paths[key], weights[f"{key}_sha256"])
+    return paths
+
+
+def load_unet(path: str, device) -> dict:
+    """{'Conv_i': (OIHW weight, bias)} float32 tensors on `device`, from a
+    U-Net pickle whose sha256 the caller has checked (`checked_weights`)."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
     out = {}
     for name, layer in payload["params"].items():
         k = np.asarray(layer["kernel"], np.float32).transpose(3, 2, 0, 1)
@@ -92,11 +105,10 @@ def dist_head(feat_rows: torch.Tensor, layer: tuple) -> torch.Tensor:
     return F.softplus(feat_rows @ w[:, :, 0, 0].t() + b)
 
 
-def load_scoring(path: str, sha256: str) -> dict:
-    """The scoring npz's arrays (numpy)."""
-    import io
-
-    with np.load(io.BytesIO(checked_bytes(path, sha256))) as z:
+def load_scoring(path: str) -> dict:
+    """The scoring npz's arrays (numpy), from a file whose sha256 the
+    caller has checked (`checked_weights`)."""
+    with np.load(path) as z:
         return {k: z[k] for k in z.files}
 
 

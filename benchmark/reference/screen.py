@@ -3,7 +3,8 @@
 What `Reference.screen` works out again from the raw frames and the two
 weight files, frame by frame:
 
-1. segmentation (`segment.py`);
+1. segmentation: the configuration's backend's `backends/<backend>/reference.py`
+   (StarDist and threshold: `segment.py`);
 2. stage A: per label (1..label_capacity) the area, bounding box and
    eccentricity (from the central second moments); geometric QC (a
    `border_margin` from every edge, area in [min_area, max_area],
@@ -29,9 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.reference import segment
+from benchmark import backends
 from benchmark.reference.clahe_np import equalize_adapthist_np
-from benchmark.reference.models import CAE, load_scoring, load_unet, tf32
+from benchmark.reference.models import CAE, checked_weights, load_scoring, tf32
 
 STAT_KEYS = ("label_ids", "area", "eccentricity", "mean_intensity", "std_intensity",
              "frame_index")
@@ -140,19 +141,17 @@ class Reference:
 
     def __init__(self, config: dict, workload: dict, root: str, device):
         self.config, self.workload, self.device = config, workload, torch.device(device)
-        wts = config["weights"]
         self.seg = dict(config["segmentation"], **workload["segmentation"])
-        self.unet = None
-        if self.seg["backend"] == "stardist":
-            self.unet = load_unet(f"{root}/{wts['unet']}", wts["unet_sha256"], self.device)
-        self.arrays = load_scoring(f"{root}/{wts['scoring']}", wts["scoring_sha256"])
+        self.backend = backends.module(self.seg["backend"], "reference")
+        paths = checked_weights(config["weights"], root)
+        self.state = self.backend.load(self.seg, {k: p for k, p in paths.items()
+                                                  if k != "scoring"}, self.device)
+        self.arrays = load_scoring(paths["scoring"])
         self.cae = CAE(self.arrays, self.device)
 
     def labels(self, seg: np.ndarray) -> np.ndarray:
         x = torch.as_tensor(seg.astype(np.float32), device=self.device)
-        if self.seg["backend"] == "stardist":
-            return segment.stardist_labels(x, self.unet, self.seg)
-        return segment.threshold_labels(x, self.seg)
+        return self.backend.labels(self.state, x, self.seg)
 
     def screen(self, frames: np.ndarray, use_tf32: bool = False) -> tuple:
         """(scores, stats) of the (B, H, W, 3) uint16 frames, frame by

@@ -1,10 +1,12 @@
 """Nothing of the benchmark imports JAX or the JAX package, and the
-reference imports nothing of the program (an AST scan, module names
-compared whole by their top-level part)."""
+yardstick (the reference, each backend's reference and work counts, the
+check, work, trace, traffic and metrics) imports nothing of the program
+(an AST scan, module names compared whole by their top-level part)."""
 
 import ast
 import glob
 import os
+import re
 
 import pytest
 
@@ -12,6 +14,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(os.path.relpath(p, HERE) for p in glob.glob(os.path.join(HERE, "**", "*.py"),
                                                            recursive=True))
 FORBIDDEN = {"jax", "jaxlib", "flax", "cell_image_analysis_tpu"}
+# a backend's reference and work counts; its system.py imports the port
+BACKEND_YARDSTICK = re.compile(r"backends/[^/]+/(reference|counts)\.py")
 
 
 def _imports(path):
@@ -30,8 +34,10 @@ def test_no_jax(path):
 
 
 @pytest.mark.parametrize("path", [f for f in FILES if f.startswith("reference")
-                                  or f in ("check.py", "work.py", "trace.py")
-                                  or f.startswith("traffic") or f.startswith("metrics")])
+                                  or f in ("check.py", "work.py", "trace.py",
+                                           "backends/__init__.py")
+                                  or f.startswith("traffic") or f.startswith("metrics")
+                                  or BACKEND_YARDSTICK.fullmatch(f)])
 def test_the_yardstick_imports_nothing_of_the_program(path):
     tops = {m.split(".", 1)[0] for m in _imports(path)}
     assert "cell_image_analysis_tpu_torch" not in tops

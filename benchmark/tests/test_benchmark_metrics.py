@@ -8,7 +8,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from benchmark import harness, work
+from benchmark import backends, harness, work
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = json.load(open(os.path.join(HERE, "configs", "stardist_fluo.json")))
@@ -24,7 +24,8 @@ def _ctx(device_type="cuda", trace=None, traced=()):
 
 def test_mfu_reads_the_untraced_window():
     seg = dict(CFG["segmentation"], **WORKLOAD["segmentation"])
-    frame = work.unet_flops(1024, seg) + work.dist_head_flops(seg, 256)
+    stardist = backends.module("stardist", "counts")
+    frame = stardist.unet_flops(1024, seg) + stardist.dist_head_flops(seg, 256)
     flops = 1600 * frame + 80000 * work.cae_flops(CFG["scoring"])
     got = harness.metric_reader("mfu")(_ctx())
     assert got == pytest.approx(100 * flops / (30.0 * work.PEAK_FLOPS))

@@ -5,10 +5,11 @@ import os
 
 import pytest
 
-from benchmark import work
+from benchmark import backends, work
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = json.load(open(os.path.join(HERE, "configs", "stardist_fluo.json")))
+STARDIST = backends.module("stardist", "counts")
 
 
 def test_unet_flops_at_1024_by_hand():
@@ -18,10 +19,10 @@ def test_unet_flops_at_1024_by_hand():
              (256, 128, 128), (128, 128, 256), (128, 256, 256), (256, 256 + 128, 128),
              (256, 128, 128), (512, 128 + 64, 64), (512, 64, 64), (512, 64, 128)]
     hand = sum(2 * s * s * ci * co * 9 for s, ci, co in convs) + 2 * 512 * 512 * 128
-    got = work.unet_flops(1024, CFG["segmentation"])
+    got = STARDIST.unet_flops(1024, CFG["segmentation"])
     assert got == hand
     assert got == pytest.approx(300.2e9, rel=1e-3)
-    assert work.unet_flops(4096, CFG["segmentation"]) == 16 * got
+    assert STARDIST.unet_flops(4096, CFG["segmentation"]) == 16 * got
 
 
 def test_cae_flops_by_hand():
@@ -36,7 +37,7 @@ def test_cae_flops_by_hand():
 def test_least_times():
     seg = CFG["segmentation"]
     # Conv_1 at a 1024^2 frame is bound by its bytes, Conv_8 by its FLOPs
-    t = work.conv3x3_least_seconds(1024, seg, 16)
+    t = work.conv3x3_least_seconds(STARDIST.conv3x3_layers(1024, seg), 16)
     assert 9e-3 < t < 12e-3
     assert work.percentile_least_seconds(16, 1024) == pytest.approx(16 * 2 ** 22 / 3.35e12)
     assert work.clahe_least_seconds(1000) == pytest.approx(8000 / 3.35e12)

@@ -1,6 +1,8 @@
 """The work the benchmark counts: operations and bytes from shapes, and the
 chip's peaks.  Nothing here reads the program: every count follows from
 the configuration's widths, the cell's frame size and what a run returned.
+What one segmentation backend's network does is its own
+`backends/<backend>/counts.py`.
 
 Peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W power limit):
 495 TFLOP/s TF32 on the tensor cores, the rate the port's float32 3x3
@@ -14,55 +16,20 @@ PEAK_BYTES = 3.35e12     # HBM3 bytes/s, H100 SXM
 F32 = 4
 
 
-def unet_layers(size: int, seg: dict) -> list:
-    """The U-Net's convolutions at a size^2 frame as (name, h, w, ci, co,
-    k): two 3x3 convs a level down to `unet_depth` and in the middle, two
-    a decoder level back to the grid's resolution (the input is the
-    upsampled level beside the skip), the 3x3 head conv and the 1x1
-    probability head.  The 1x1 dist head runs on the top-K rows only
-    (`dist_head_flops`)."""
-    depth, base, head = seg["unet_depth"], seg["base_filters"], seg["head_filters"]
-    layers, ci, i, s = [], 1, 0, size
-    for lvl in range(depth + 1):
-        f = base * 2 ** lvl
-        layers += [(f"Conv_{i}", s, s, ci, f, 3), (f"Conv_{i + 1}", s, s, f, f, 3)]
-        ci, i = f, i + 2
-        if lvl < depth:
-            s //= 2
-    for lvl in reversed(range(1, depth)):
-        f = base * 2 ** lvl
-        s *= 2
-        layers += [(f"Conv_{i}", s, s, ci + f, f, 3), (f"Conv_{i + 1}", s, s, f, f, 3)]
-        ci, i = f, i + 2
-    layers += [(f"Conv_{i}", s, s, ci, head, 3), (f"Conv_{i + 1}", s, s, head, 1, 1)]
-    return layers
-
-
 def conv_flops(h: int, w: int, ci: int, co: int, k: int) -> float:
     """Direct-convolution FLOPs of one frame: a multiply and an add a tap."""
     return 2.0 * h * w * ci * co * k * k
 
 
-def unet_flops(size: int, seg: dict) -> float:
-    """Direct FLOPs of the U-Net's convolutions and probability head, one frame."""
-    return sum(conv_flops(h, w, ci, co, k) for _, h, w, ci, co, k in unet_layers(size, seg))
-
-
-def dist_head_flops(seg: dict, rows: int) -> float:
-    """The 1x1 dist head on `rows` gathered feature rows."""
-    return 2.0 * rows * seg["head_filters"] * seg["n_rays"]
-
-
-def conv3x3_least_seconds(size: int, seg: dict, frames: int) -> float:
-    """The least time of the U-Net's 3x3 convolutions over `frames` frames:
-    per layer the larger of its FLOPs at the TF32 peak and its bytes (input,
-    weights and output, each once) at the HBM peak, summed."""
+def conv3x3_least_seconds(layers: list, frames: int) -> float:
+    """The least time of the 3x3 convolutions `layers` ((name, h, w, ci,
+    co) of one frame, a backend's `counts.conv3x3_layers`) over `frames`
+    frames: per layer the larger of its FLOPs at the TF32 peak and its
+    bytes (input, weights and output, each once) at the HBM peak, summed."""
     total = 0.0
-    for _, h, w, ci, co, k in unet_layers(size, seg):
-        if k != 3:
-            continue
-        flops = frames * conv_flops(h, w, ci, co, k)
-        nbytes = F32 * (frames * h * w * (ci + co) + k * k * ci * co + co)
+    for _, h, w, ci, co in layers:
+        flops = frames * conv_flops(h, w, ci, co, 3)
+        nbytes = F32 * (frames * h * w * (ci + co) + 9 * ci * co + co)
         total += max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
     return total
 
