@@ -2,7 +2,8 @@
 
   python -m cell_image_analysis_tpu_torch.cli train INPUT_FOLDER --output OUT
   python -m cell_image_analysis_tpu_torch.cli screen --models DIR \
-         --sample strain1=/path/a --sample strain2=/path/b --output OUT
+         --sample strain1=/path/a --sample strain2=/path/b --output OUT \
+         [--backend cellpose --cellpose-weights PATH]
   python -m cell_image_analysis_tpu_torch.cli bench [--frames 8 --size 1024 \
          --cells-per-frame 80 --backend stardist]
 
@@ -91,17 +92,31 @@ def add_screen_arguments(p: argparse.ArgumentParser):
                    help="screen under torch.profiler: a Chrome trace with the port's spans, "
                         "and their summary as JSON, written into DIR")
     _add_common(p)
+    # screening also runs the port's Cellpose backend, which JAX's cli has not
+    backend = next(a for a in p._actions if a.dest == "backend")
+    backend.choices = [*backend.choices, "cellpose"]
+    backend.help = ("segmentation backend (stardist uses the bundled weights unless "
+                    "--unet-weights; cellpose needs --cellpose-weights)")
+    p.add_argument("--cellpose-weights", default=None, metavar="PATH",
+                   help="Cellpose CPnet weights (.npz of Cellpose's state-dict names, "
+                        "io.artifacts.save_cellpose_weights) for --backend cellpose")
 
 
 def load_unet(args):
-    """The U-Net variables `--backend` / `--unet-weights` select, or None
-    for the threshold backend."""
+    """The network weights `--backend` selects: the U-Net variables of
+    `--unet-weights` (or the bundled ones), the Cellpose weights of
+    `--cellpose-weights`, or None for the threshold backend."""
     from cell_image_analysis_tpu_torch.io.artifacts import (
         UNET_WEIGHTS_PATH,
         load_cae,
+        load_cellpose_weights,
         load_unet_variables,
     )
 
+    if args.backend == "cellpose":
+        if not getattr(args, "cellpose_weights", None):
+            raise SystemExit("--backend cellpose needs --cellpose-weights PATH")
+        return load_cellpose_weights(args.cellpose_weights)
     weights_path = args.unet_weights
     if not weights_path and args.backend == "stardist":
         if os.path.exists(UNET_WEIGHTS_PATH):

@@ -8,7 +8,9 @@ names and the output-file contract.  Left out: `SegConfig`'s TPU knobs
 the Winograd kernel.  `ShardingConfig` is copied as it is: the JAX package
 reads none of its fields, and neither does the port (its mesh is an
 argument, `parallel.mesh`; the plate tiler's switch is
-`ExtractConfig.tile_min_side`).
+`ExtractConfig.tile_min_side`).  `CellposeConfig` is the port's own (the
+JAX package has no Cellpose backend): `SegConfig.backend == "cellpose"`
+selects it, and `SegConfig` and `PipelineConfig` keep JAX's fields.
 """
 
 from __future__ import annotations
@@ -77,8 +79,29 @@ class SegConfig:
     raster_m_cap: int = 8            # tiled mode: polygons a tile may hold
     norm_pmin: float = 3.0           # percentile normalization of the seg channel
     norm_pmax: float = 99.8
-    backend: str = "stardist"        # "stardist" | "threshold"
+    backend: str = "stardist"        # "stardist" | "threshold" | "cellpose"
     threshold_percentile: float = 90.0
+
+
+@dataclass(frozen=True)
+class CellposeConfig:
+    """Cellpose 3's `cyto3` segmentation (MouseLand/cellpose `CPnet` and
+    `dynamics.compute_masks` at their defaults), the port's third backend
+    (`SegConfig.backend == "cellpose"`); the JAX package has none.  The
+    channels are [0, 0] (the frame, then zeros) and the rescale is 1 (a
+    diameter equal to the model's `diam_mean`, 30); the network's widths
+    are those of its weights (`models.cellpose.nbase_of`)."""
+
+    tile: int = 224                  # bsize of run_net's tiles
+    tile_overlap: float = 0.1
+    niter: int = 200                 # Euler steps of the flow following
+    cellprob_threshold: float = 0.0
+    flow_threshold: float = 0.4      # flow-error QC; 0 turns it off
+    min_size: int = 15               # fill_holes_and_remove_small_masks
+    max_size_fraction: float = 0.4   # get_masks drops masks above it
+    tile_chunk: int = 576            # tiles a CPnet call: a batch of 16 1024^2 frames
+    norm_pmin: float = 1.0           # normalize99
+    norm_pmax: float = 99.0
 
 
 # Capacities are tuned for frames up to 1024^2; a larger frame scales them.

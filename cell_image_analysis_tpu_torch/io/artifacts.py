@@ -27,6 +27,9 @@
 - `unet_state_from_jax` / `cae_state_from_jax` map flax variables onto the
   port's `nn.Module` state dicts (HWIO -> OIHW); `unet_params_to_jax` and
   `cae_state_to_jax` are their inverses.
+- `load_cellpose_weights` / `save_cellpose_weights` read and write Cellpose
+  `CPnet` weights as a NumPy `.npz` of Cellpose's state-dict names
+  (`models.cellpose.cellpose_key_map`) with a JSON `meta` entry; no pickle.
 - `load_scoring_params` reads `assets/scoring_synthetic.npz`
   (scripts/make_torch_port_assets.py) into a `ScoringParams` of tensors,
   on the card unless the caller passes `device="cpu"`.
@@ -70,6 +73,23 @@ def load_unet_variables(path: str | None = None) -> dict:
         raise ValueError(f"{path}: unexpected payload")
     return {"params": {name: {k: np.asarray(v, np.float32) for k, v in layer.items()}
                        for name, layer in payload["params"].items()}}
+
+
+def load_cellpose_weights(path: str) -> dict:
+    """The Cellpose-named arrays of a `save_cellpose_weights` file as
+    float32 (`meta` left out); ValueError where it holds no CPnet."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k].astype(np.float32) for k in z.files if k != "meta"}
+    if "downsample.down.res_down_0.proj.1.weight" not in arrays:
+        raise ValueError(f"{path}: not a Cellpose CPnet weight file")
+    return arrays
+
+
+def save_cellpose_weights(path: str, arrays: dict, meta: dict | None = None) -> None:
+    """Writes Cellpose-named arrays (float32 or float16, as given) and
+    `meta` (as JSON) into an `.npz`; readers take them as float32."""
+    np.savez(path, meta=np.asarray(json.dumps(meta or {}, sort_keys=True)),
+             **{k: np.asarray(v) for k, v in arrays.items()})
 
 
 def _host(t) -> np.ndarray:

@@ -16,6 +16,11 @@ Counterpart of `cell_image_analysis_tpu/models/segmentation.py`:
   cap, the NMS pair budget and the candidate cap.  Its `exact_twin()` is
   the backend JAX's callers re-run on overflow: scatter rasterizer, the
   K^2 NMS pair set and the pixel regionprops;
+- `CellposeBackend`: Cellpose 3's `cyto3` network (`models.cellpose`)
+  over tiles, the flow following (`ops.flows`), the masks, the flow-error
+  QC and the clean-up (`ops.cellpose_masks`), returning label maps per
+  frame batch; it has no capacity.  Its `exact_twin()`, which a stage-A
+  overflow re-runs, is the same network on the pixel regionprops;
 - `segment_frame`: the dispatch on `SegConfig.backend`;
 - `select_backend`: the screener's and the trainer's choice of a
   segment_fn and its exact twin.
@@ -31,14 +36,16 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from cell_image_analysis_tpu_torch.config import SegConfig
+from cell_image_analysis_tpu_torch.config import CellposeConfig, SegConfig
 from cell_image_analysis_tpu_torch.io.artifacts import resolve_device, unet_state_from_jax
 from cell_image_analysis_tpu_torch.models.stardist import predict_instances
 from cell_image_analysis_tpu_torch.models.unet import StarDistUNet
 from cell_image_analysis_tpu_torch.ops.cc import label_components
 from cell_image_analysis_tpu_torch.ops.extract import OVERFLOW_REASONS
 from cell_image_analysis_tpu_torch.ops.percentile import kth_smallest, percentile_ranks
-from cell_image_analysis_tpu_torch.utils.profiler import span
+from cell_image_analysis_tpu_torch.utils.profiler import count, span
+
+BACKENDS = ("stardist", "threshold", "cellpose")
 
 
 def _cross(mask: torch.Tensor, combine) -> torch.Tensor:
@@ -210,11 +217,93 @@ class StarDistBackend:
         return labels, reasons
 
 
+class CellposeBackend:
+    """Label-map segment_fn for `pipeline.scoring.score_frames_fused`:
+    Cellpose 3 (`CellposeConfig`) with the network built from `arrays` (a
+    dict of Cellpose-named weights, `models.cellpose.build_cpnet`) on
+    `device`, by default the card; a `model` passed in stays where it is.
+
+    It has no capacity of its own: the seed table is sized to the batch's
+    most seeds.  Stage A goes through the run-length label regionprops
+    (`runs_props`), the exact twin's through the pixel regionprops.  Spans
+    `cellpose.normalize`, `cellpose.tiles`, `cellpose.net`,
+    `cellpose.follow_flows`, `cellpose.masks`, `cellpose.flow_qc`,
+    `cellpose.fill`; counters `cellpose.tiles`, `cellpose.points` (the
+    moving pixels), `cellpose.seeds`, `cellpose.qc_iterations` (the
+    batch's heat-map steps), `cellpose.removed_flow`,
+    `cellpose.removed_small`."""
+
+    returns_mask = False
+
+    def __init__(self, arrays: dict | None, cfg: CellposeConfig = CellposeConfig(), device=None,
+                 runs_props: bool = True, model=None):
+        from cell_image_analysis_tpu_torch.models.cellpose import build_cpnet
+
+        self.cfg = cfg
+        self.runs_props = runs_props
+        self.model = model if model is not None else build_cpnet(arrays,
+                                                                 resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def exact_twin(self) -> CellposeBackend:
+        """The re-run target of a stage-A overflow, on the same network:
+        pixel regionprops."""
+        return CellposeBackend(None, self.cfg, runs_props=False, model=self.model)
+
+    @torch.inference_mode()
+    def __call__(self, seg_channels: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) raw channels -> labels (B, H, W) int32."""
+        from cell_image_analysis_tpu_torch.models.cellpose import run_tiled
+        from cell_image_analysis_tpu_torch.ops import cellpose_masks as cm
+        from cell_image_analysis_tpu_torch.ops.flows import follow_flows
+
+        c = self.cfg
+        y = run_tiled(self.model, seg_channels.to(self.device).float(), tile=c.tile,
+                      overlap=c.tile_overlap, tile_chunk=c.tile_chunk, pmin=c.norm_pmin,
+                      pmax=c.norm_pmax)
+        dP = y[..., :2].permute(0, 3, 1, 2).contiguous()
+        cellprob = y[..., 2].contiguous()
+        del y
+        p, n_moving = follow_flows(dP, cellprob, c.niter, c.cellprob_threshold)
+        with span("cellpose.masks"):
+            labels, n_seeds = cm.get_masks(p, cellprob > c.cellprob_threshold, n_moving,
+                                           c.max_size_fraction)
+            points, seeds, top = torch.stack([n_moving.sum().long(), n_seeds.sum(),
+                                              labels.max().long()]).tolist()
+            count("cellpose.points", points)
+            count("cellpose.seeds", seeds)
+        del p
+        if c.flow_threshold > 0 and top > 0:
+            with span("cellpose.flow_qc"):
+                labels, bad, n_iter = cm.remove_bad_flow_masks(labels, dP, c.flow_threshold,
+                                                               top + 1)
+                # the fill needs the labels' size read anyway: the counts ride along
+                bad, steps, top = torch.stack([bad.sum(), n_iter.max(),
+                                               labels.max().long()]).tolist()
+                count("cellpose.removed_flow", bad)
+                count("cellpose.qc_iterations", steps)
+        with span("cellpose.fill"):
+            labels, _ = cm.fill_holes_and_remove_small(labels, c.min_size, top + 1)
+        return labels
+
+
 def segment_frame(seg_channels: torch.Tensor, cfg: SegConfig = SegConfig(),
-                  model: StarDistUNet | None = None) -> torch.Tensor:
-    """Dispatch on `cfg.backend`: the threshold backend's label maps, or
-    StarDist's with the U-Net `model` (JAX takes its variables instead);
-    without a model the threshold backend runs, as in JAX."""
+                  model=None) -> torch.Tensor:
+    """Dispatch on `cfg.backend`: the threshold backend's label maps,
+    StarDist's with the U-Net `model` (JAX takes its variables instead;
+    without a model the threshold backend runs, as in JAX), or Cellpose's
+    with its `CPnet` `model` at `CellposeConfig()`'s settings.  Any other
+    name raises ValueError."""
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"segment_frame: unknown segmentation backend {cfg.backend!r}; "
+                         f"known: {BACKENDS}")
+    if cfg.backend == "cellpose":
+        if model is None:
+            raise ValueError("segment_frame: the cellpose backend needs its CPnet model")
+        return CellposeBackend(None, model=model)(seg_channels)
     if cfg.backend == "threshold" or model is None:
         return threshold_segment(seg_channels, threshold_percentile=cfg.threshold_percentile,
                                  pmin=cfg.norm_pmin, pmax=cfg.norm_pmax)
@@ -224,11 +313,24 @@ def segment_frame(seg_channels: torch.Tensor, cfg: SegConfig = SegConfig(),
 
 
 def select_backend(seg_cfg: SegConfig, cell_capacity: int, unet_variables=None, device=None):
-    """(segment_fn, exact twin, U-Net module or None) of the pipelines.
+    """(segment_fn, exact twin, network module or None) of the pipelines.
     With `unet_variables` and the StarDist backend: the raster-capped
     `StarDistBackend` (`raster_cap` = `cell_capacity` unless set), whose
-    twin takes every overflow re-run, on `device`.  Otherwise the threshold
-    backend: the mask route with the label route as its exact twin."""
+    twin takes every overflow re-run, on `device`.  With the Cellpose
+    backend `unet_variables` are the Cellpose weights (a dict of
+    Cellpose-named arrays, `io.artifacts.load_cellpose_weights`), required,
+    and the backend is `CellposeBackend` at `CellposeConfig()`.  Otherwise
+    the threshold backend: the mask route with the label route as its
+    exact twin.  An unknown backend name raises ValueError."""
+    if seg_cfg.backend not in BACKENDS:
+        raise ValueError(f"select_backend: unknown segmentation backend {seg_cfg.backend!r}; "
+                         f"known: {BACKENDS}")
+    if seg_cfg.backend == "cellpose":
+        if unet_variables is None:
+            raise ValueError("select_backend: the cellpose backend needs its weights "
+                             "(--cellpose-weights)")
+        primary = CellposeBackend(unet_variables, device=device)
+        return primary, primary.exact_twin(), primary.model
     if seg_cfg.backend == "threshold" or unet_variables is None:
         primary = ThresholdBackend(seg_cfg)
         return primary, primary.exact_twin(), None

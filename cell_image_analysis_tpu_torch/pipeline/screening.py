@@ -64,7 +64,9 @@ class ProductionMutantScreening:
     """The screener.  `unet_variables` (flax-layout numpy, as
     `io.artifacts.load_unet_variables` returns) selects the StarDist
     backend; without them, or with `config.seg.backend == "threshold"`, the
-    threshold backend runs.  Everything lives on `device` (default: the
+    threshold backend runs.  With `config.seg.backend == "cellpose"` they
+    are the Cellpose weights (`io.artifacts.load_cellpose_weights`), on one
+    device (no mesh).  Everything lives on `device` (default: the
     card; without one and without `device="cpu"` this raises).  With a
     `mesh` the home device is the mesh's first, which a `device` passed
     beside it must name."""
@@ -86,6 +88,8 @@ class ProductionMutantScreening:
         # the threshold backend's mask route (run-length connected
         # components) or raster-capped StarDist with the run-length label
         # regionprops; the exact twin takes every overflow re-run
+        if mesh is not None and config.seg.backend == "cellpose":
+            raise ValueError("the cellpose backend screens on one device: no mesh")
         segment, self._segment_fallback, self._unet = select_backend(
             config.seg, config.extract.cell_capacity, unet_variables, self.device)
         self._segment_mask = segment if segment.returns_mask else None
@@ -102,7 +106,7 @@ class ProductionMutantScreening:
     def _segment_for(self, h: int, w: int):
         """(segment_fn, fallback_fn) with area-scaled capacities."""
         scale = capacity_scale(h, w)
-        if self._segment_mask is not None or scale == 1:
+        if not self._stardist() or scale == 1:
             return self._segment_mask or self._segment, self._segment_fallback
         key = (h, w)
         if key not in self._plate_backends:
@@ -213,7 +217,7 @@ class ProductionMutantScreening:
         return frames_to_device(channels, self.device)
 
     def _stardist(self) -> bool:
-        return self._segment is not None
+        return isinstance(self._segment, StarDistBackend)
 
     def tiled_route(self, shape: tuple) -> bool:
         """A frame takes the plate tiler when a mesh is attached, both its

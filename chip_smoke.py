@@ -31,7 +31,10 @@ Phases (any failure exits non-zero before the last line is printed):
    CC and Winograd at the shapes of phase 12's haloed tiles; the radix
    select (`kth_smallest`) on the 16 frames at the normalization's 4
    ranks and the threshold's 6, bit-equal to its plain version and to
-   torch.kthvalue (the library call); and, with phase 16, at the 4096^2
+   torch.kthvalue (the library call); the flow following kernel
+   (`csrc/follow_flows.cu`, Cellpose's 200 steps) on (16, 2, 1024, 1024)
+   flows made from the 16 frames' StarDist labels: within 1e-4 px of its
+   plain version, every pixel truncated alike; and, with phase 16, at the 4096^2
    plate row's shapes: Winograd's Conv_1 on (2, 4096, 4096, 32 -> 32)
    within 1e-5 of cuDNN, segment sum, CLAHE and the select (4 ranks) on
    the row's first batch (its frames made by a worker process that starts
@@ -248,7 +251,17 @@ Phases (any failure exits non-zero before the last line is printed):
    every kernel call held against its plain version (`_HeldAgainstPlain`).
    `--phases 0,1,16` runs it alone (exit 1: no result line; without phase
    2 the kernels are not timed at the row's shapes);
-17. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+17. the Cellpose backend's main path: `CellposeBackend` at
+   `CellposeConfig()` over `benchmark/data/cellpose_synthetic.npz` (CPnet
+   at nbase 2-32-64-128-256, 576 224^2 tiles in one call, 200 steps)
+   screening the 16 frames through `score_frames_fused_start` / `_wait`
+   at phase 3's capacities, a warm-up, then a run with the counts set to 0
+   just before and read after: the flow following, Winograd, the select,
+   segment sum, CLAHE and CC must each launch, no batch may fall back to
+   the exact twin, and the cells pass `_check_result`; cells/s and peak
+   memory are printed.  `--phases 0,1,17` runs it alone (exit 1: no
+   result line);
+18. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -293,7 +306,7 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17}
 TRAIN_EPOCHS = 5  # phase 10's epochs (the CAE's width is never cut)
 # phase 11: the recipe of assets/unet_synthetic.pkl (scripts/make_unet_weights.py
 # --dense: 8 crowded frames of 256^2, 400 full-batch epochs at lr 3e-3), at
@@ -370,6 +383,11 @@ PARITY_GATE = 1e-3      # the largest anomaly-rate deviation (BASELINE.md's nort
 # phase 14: the processes of scripts/dryrun_dist_torch.py, all on cuda:0 with
 # gloo (NCCL refuses two ranks on one GPU), each with a virtual mesh of 2
 DIST_LOCAL_SHARDS, DIST_TIMEOUT = 2, 600
+# phase 17: the Cellpose backend's weights (CPnet trained in the repository,
+# scripts/make_cellpose_weights_torch.py) and the kernels its path launches
+CELLPOSE_WEIGHTS = os.path.join(REPO, "benchmark", "data", "cellpose_synthetic.npz")
+CELLPOSE_KERNELS = ("follow_flows", "winograd_conv3x3", "kthvalue_radix", "segment_sum",
+                    "clahe_cells", "cc_tile_labels")
 # phase 15: the train round trip of JAX's scripts/parity_train_onchip.py (6
 # training frames, 8 epochs) at 512^2 and 50 cells a frame, a few hundred
 # cells, so that its CPU half stays near two minutes: frames, side, cells, epochs
@@ -616,6 +634,51 @@ def _kthvalue_check(torch, segs, qs: tuple, what: str) -> dict:
                 library_ms=t_l, shape=[B, n], ranks=len(ks))
 
 
+def _follow_flows_check(torch, labels, niter: int = 200) -> dict:
+    """The flow following kernel on flows made from the 16 frames' StarDist
+    label maps (5 x `masks_to_flows` plus noise, a +-2 cell probability
+    plus noise, as `tests/test_torch_cellpose.py` makes them): final
+    positions within 1e-4 px of its plain version and every moving pixel
+    truncated to the same one, the others where they started; its device
+    time, the event-timed call, the plain version's time and its bound
+    (flows and cell probability read once, every final position written
+    once).  No library computes it."""
+    from cell_image_analysis_tpu_torch.ops.cellpose_masks import masks_to_flows
+    from cell_image_analysis_tpu_torch.ops.cuda.flows import follow_flows_cuda
+    from cell_image_analysis_tpu_torch.ops.flows import flow_field, follow_flows_plain, moving_points
+
+    dev = labels.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    mu, _ = masks_to_flows(labels)
+    dP = (5 * mu.float() + 0.3 * torch.randn(mu.shape, generator=gen, device=dev)).contiguous()
+    prob = (torch.where(labels > 0, 2.0, -2.0)
+            + 0.5 * torch.randn(labels.shape, generator=gen, device=dev)).float().contiguous()
+    del mu
+    got, n_moving = follow_flows_cuda(dP, prob, niter)
+    want = follow_flows_plain(dP, prob, niter)
+    moving = moving_points(flow_field(dP, prob))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    same = (got.to(torch.int32) == want.to(torch.int32)).all(dim=1)
+    n_points = int(moving.sum())
+    if not (err <= 1e-4 and bool(same.all()) and torch.equal(n_moving.long(),
+                                                             moving.flatten(1).sum(1))):
+        raise AssertionError(f"[2] follow_flows: max |kernel - plain| {err:.3e} px, "
+                             f"{int((~same).sum())} pixels truncated elsewhere, moving "
+                             f"{n_moving.tolist()} vs {moving.flatten(1).sum(1).tolist()}")
+    B, _, h, w = dP.shape
+    t_d = device_ms(lambda: follow_flows_cuda(dP, prob, niter), ("follow_flows",))
+    t_k = time_ms(lambda: follow_flows_cuda(dP, prob, niter))
+    t_p = time_ms(lambda: follow_flows_plain(dP, prob, niter), n=3)
+    b_ms, b_by = bound(B * h * w * (2 + 1 + 2) * 4)
+    log(f"[2] follow_flows on {B} x {h}x{w} flows of the frames' StarDist labels, {niter} "
+        f"steps, {n_points} moving pixels: max |kernel - plain| {err:.3e} px, every pixel "
+        f"truncated alike; kernels device {t_d:.4f} ms, wrapper call {t_k:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / t_d:.1f}% of it; plain {t_p:.3f} ms")
+    return dict(max_abs_err=err, ms=t_d, event_ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shape=[B, 2, h, w], moving=n_points)
+
+
 def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
     from cell_image_analysis_tpu_torch.ops.cc import (
@@ -732,6 +795,7 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     res["kthvalue_radix"] = dict(max_abs_err=0.0, **row, threshold_ms=thr["ms"],
                                  threshold_event_ms=thr["event_ms"],
                                  threshold_library_ms=thr["library_ms"])
+    res["follow_flows"] = _follow_flows_check(torch, main["labels"])
     _cc_structural(torch, dev)
     if plate is not None:
         del masks
@@ -819,10 +883,17 @@ def make_frames(torch, dev) -> tuple:
 
 
 def _kernel_modules():
-    from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, kthvalue, segsum, winograd
+    from cell_image_analysis_tpu_torch.ops.cuda import (
+        cc,
+        clahe_kernel,
+        flows,
+        kthvalue,
+        segsum,
+        winograd,
+    )
 
     return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_cells": clahe_kernel,
-            "cc_tile_labels": cc, "kthvalue_radix": kthvalue}
+            "cc_tile_labels": cc, "kthvalue_radix": kthvalue, "follow_flows": flows}
 
 
 def _reset_launches() -> None:
@@ -1083,6 +1154,43 @@ def phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model
     log(f"[6] NMS budget 64 pairs: overflow in frames "
         f"{torch.nonzero(tight.overflow).flatten().tolist()}, fell back to the twin, equal to "
         f"it; {t_forced:.3f} s wall")
+
+
+def phase_cellpose(torch, dev, stage_a, segs, greens, params_model) -> dict:
+    """Phase 17 (see the module docstring): the Cellpose backend at
+    `CellposeConfig()` through `score_frames_fused_start` / `_wait` on the
+    16 frames, a warm-up, then a run with the counts set to 0 just before;
+    returns its launches, cells, wall seconds and peak memory."""
+    from cell_image_analysis_tpu_torch.io.artifacts import load_cellpose_weights
+    from cell_image_analysis_tpu_torch.models.segmentation import CellposeBackend
+    from cell_image_analysis_tpu_torch.pipeline.scoring import (
+        score_frames_fused_start,
+        score_frames_fused_wait,
+    )
+
+    model, params = params_model
+    backend = CellposeBackend(load_cellpose_weights(CELLPOSE_WEIGHTS), device=dev)
+    twin = _Recording(backend.exact_twin())
+
+    def run():
+        return score_frames_fused_wait(score_frames_fused_start(
+            model, params, segs, greens, backend, chunk=32, caps=(64, 96),
+            fallback_segment_fn=twin, **stage_a))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, t_first = _timed(torch, run)
+    log(f"[17] Cellpose, first run (warm-up) {t_first:.2f} s")
+    (scores, stats), launches, seconds = _counted(torch, run, CELLPOSE_KERNELS,
+                                                  "[17] Cellpose main path", held=False)
+    n_frames = segs.shape[0]
+    n = _check_result(scores, stats, n_frames)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if twin.calls:
+        raise AssertionError(f"[17] Cellpose: {twin.calls} batches fell back to the exact twin")
+    log(f"[17] Cellpose (CPnet nbase {backend.model.nbase}, {backend.cfg.tile}^2 tiles, "
+        f"{backend.cfg.niter} steps) on the {n_frames} frames: {n} cells, {seconds:.3f} s wall, "
+        f"{n / seconds:.1f} cells/s; peak {peak_gib:.3f} GiB; no fallback [{smi_line()}]")
+    return dict(launches=launches, cells=n, seconds=seconds, peak_gib=peak_gib)
 
 
 def write_frames(folder: str, first: int, n: int, seed: int, mutant_fraction: float,
@@ -3071,7 +3179,7 @@ def main() -> int:
             phase_build()
             mark("1")
         segs = greens = main_a = frames_sha = None
-        if phases & {2, 3, 5, 6, 12, 14}:
+        if phases & {2, 3, 5, 6, 12, 14, 17}:
             segs, greens, frames_sha = make_frames(torch, dev)
         if phases & {2, 3}:
             from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
@@ -3114,6 +3222,13 @@ def main() -> int:
             phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model,
                        main_result)
             mark("6")
+        cellpose = None
+        if 17 in phases:
+            torch.cuda.empty_cache()
+            cellpose = phase_cellpose(torch, dev, stage_a, segs, greens, params_model)
+            launches["follow_flows"] = cellpose["launches"]["follow_flows"]
+            torch.cuda.empty_cache()
+            mark("17")
         phase3 = (main_result, frames_sha) if main_result is not None else None
         del main_a, main_result
         if not phases & {12, 14}:
@@ -3200,9 +3315,12 @@ def main() -> int:
         "kthvalue_radix": ("csrc/kthvalue_radix.cu",
                            "no Pallas kernel: torch.kthvalue, for the XLA bisection of "
                            "cell_image_analysis_tpu/ops/percentile.py"),
+        "follow_flows": ("csrc/follow_flows.cu",
+                         "no Pallas kernel: the JAX package has no Cellpose; the 200 "
+                         "grid_sample steps of Cellpose's dynamics.steps2D_interp"),
     }
     # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
-    # phase 5 (b), the label route); `launches_per_batch`: the kernel
+    # phase 5 (b), the label route; the flow following: phase 17, Cellpose); `launches_per_batch`: the kernel
     # launches on the card they make (a CC call is the module's
     # KERNELS_PER_CALL); `screening_launches`: wrapper calls while phase 7
     # screened its folders; `training_launches`: wrapper calls while phase
@@ -3234,7 +3352,7 @@ def main() -> int:
                  training_launches=training_launches[name],
                  unet_training_launches=unet_training[name],
                  mesh_launches=mesh["launches"][name],
-                 dist_launches=dist["launches"][name],
+                 dist_launches=dist["launches"].get(name, 0),
                  bench_launches={b: n[name] for b, n in bench["launches"].items()},
                  bench_batch_launches={b: n[name] for b, n in bench["batch_launches"].items()},
                  plate_launches={str(size): p["launches"][name] for size, p in plates.items()},
