@@ -177,13 +177,19 @@ def clahe_cells_plain(crops: torch.Tensor, heights: torch.Tensor, widths: torch.
     return torch.where(valid, (out - lo2) * scale2, torch.zeros_like(out))
 
 
+def bucket_caps(caps: tuple, full_cap: int) -> tuple:
+    """The capacities of `size_buckets`' buckets, ascending: those of `caps`
+    below the full crop capacity, then the full crop capacity."""
+    return tuple(c for c in sorted(caps) if c < full_cap) + (full_cap,)
+
+
 def size_buckets(heights: torch.Tensor, widths: torch.Tensor, valid: torch.Tensor,
                  caps: tuple, full_cap: int) -> list:
     """The CLAHE size buckets of the (N,) cells: [(cell indices, cap,
     ns_cap)], each cell in the tightest capacity that fits; cells with a
     side of 13-15 px need 13-15 tiles on that axis, so they ride the last
     bucket (the full crop capacity, ns_cap 16)."""
-    all_caps = tuple(c for c in sorted(caps) if c < full_cap) + (full_cap,)
+    all_caps = bucket_caps(caps, full_cap)
     ns_ok = (((heights >= 16) | (heights <= 12)) & ((widths >= 16) | (widths <= 12)))
     buckets = []
     fits_prev = torch.zeros_like(valid)

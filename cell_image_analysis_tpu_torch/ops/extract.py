@@ -18,8 +18,9 @@ which cells survive.  Batched over frames.
 
 `stage_a` picks the route by the segment_fn's flags (`stage_a_reasons`
 also says which capacity fired, `OVERFLOW_REASONS`); `preprocess_buckets`
-is stage B, CLAHE once a size bucket and the resize in chunks, which the
-screening path (`pipeline.scoring`) and the two host-facing forms share:
+is stage B, CLAHE once a size bucket (`clahe_buckets`, whose buckets the
+screening path, `pipeline.scoring`, resizes and scores itself) and the
+resize in chunks, which the host-facing forms share:
 
 - `extract_cells_chunked`: one frame's label map through the pixel
   regionprops, then stage B; the preprocessed cells come back as numpy;
@@ -278,6 +279,23 @@ def preprocess_buckets(crops: torch.Tensor, heights: torch.Tensor, widths: torch
     layout, so the cells do not depend on them.  Each bucket is an
     `extract.bucket` span (its cap the argument), open while the caller
     takes its chunks."""
+    for idx, _, eq_all in clahe_buckets(crops, heights, widths, heights_h, widths_h, valid_h,
+                                        caps=caps, clip_limit=clip_limit):
+        for start in range(0, idx.numel(), chunk):
+            count("chunks")
+            ids = idx[start:start + chunk]
+            with span("resize.chunk"):
+                cells = resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
+                                     out_size=out_size)
+            yield ids, cells
+
+
+def clahe_buckets(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
+                  heights_h: torch.Tensor, widths_h: torch.Tensor, valid_h: torch.Tensor,
+                  caps: tuple = (64, 96), clip_limit: float = 0.02):
+    """The CLAHE half of `preprocess_buckets`: yields (slot ids (n,) on the
+    device, the bucket's cap, its CLAHE'd crops (n, cap, cap)) a non-empty
+    size bucket, inside the bucket's `extract.bucket` span."""
     for idx, cap_b, ns_cap in size_buckets(heights_h, widths_h, valid_h, caps, crops.shape[-1]):
         if idx.numel() == 0:
             continue
@@ -287,13 +305,7 @@ def preprocess_buckets(crops: torch.Tensor, heights: torch.Tensor, widths: torch
             with span("clahe.bucket"):
                 eq_all = clahe_bucket(crops, idx.int(), heights, widths, cap_b,
                                       clip_limit=clip_limit, ns_cap=ns_cap)
-            for start in range(0, idx.numel(), chunk):
-                count("chunks")
-                ids = idx[start:start + chunk]
-                with span("resize.chunk"):
-                    cells = resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
-                                         out_size=out_size)
-                yield ids, cells
+            yield idx, cap_b, eq_all
 
 
 @torch.inference_mode()

@@ -4,7 +4,9 @@ Counterpart of `cell_image_analysis_tpu/ops/fft_features.py`: 16 radial
 and 8 angular power fractions, the spectral centroid, the high-frequency
 fraction and log10 of the total AC power.  The bin maps and masks depend
 only on the cell shape and are built on the host in float64 numpy, as in
-the JAX package, so no device transcendental decides a bin.
+the JAX package, so no device transcendental decides a bin; they go to a
+device once a shape (`_device_geometry`), so that a call makes no host
+copy and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -31,6 +33,16 @@ def _geometry(h: int, w: int, radial_bins: int, angular_bins: int):
             r_norm.astype(np.float32), r_norm > 0.5)
 
 
+@functools.lru_cache(maxsize=32)
+def _device_geometry(device: torch.device, h: int, w: int, radial_bins: int,
+                     angular_bins: int) -> tuple:
+    """`_geometry` on `device`, copied there once; plain tensors, not
+    inference tensors, whatever mode the first call runs in."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in _geometry(h, w, radial_bins, angular_bins))
+
+
 def fft_features(cells: torch.Tensor, radial_bins: int = 16,
                  angular_bins: int = 8) -> torch.Tensor:
     """(B, H, W) or (B, H, W, 1) -> (B, radial_bins + angular_bins + 3)."""
@@ -41,8 +53,7 @@ def fft_features(cells: torch.Tensor, radial_bins: int = 16,
     Fq = torch.fft.fftshift(torch.fft.fft2(cells.float()), dim=(-2, -1))
     power = torch.abs(Fq) ** 2
 
-    dc, r_oh, a_oh, r_norm, high = (torch.as_tensor(a, device=dev) for a in
-                                    _geometry(h, w, radial_bins, angular_bins))
+    dc, r_oh, a_oh, r_norm, high = _device_geometry(dev, h, w, radial_bins, angular_bins)
     ac_power = torch.where(dc, torch.zeros((), device=dev), power)
     total = ac_power.sum(dim=(-2, -1))
     total_safe = torch.clamp(total, min=1e-20)

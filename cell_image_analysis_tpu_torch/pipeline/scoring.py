@@ -30,7 +30,10 @@ Stage A (`ops.extract.stage_a`) takes one of JAX `_stage_a_one`'s three
 routes, by the segment_fn's flags: boolean masks (`returns_mask`) through
 the run-length connected components, label maps with `runs_props` through
 the run-length regionprops, other label maps through the pixel
-regionprops; stage B is `ops.extract.preprocess_buckets`.  When a
+regionprops; stage B is CLAHE a size bucket (`ops.extract.clahe_buckets`)
+and `_chunk_rows` (resize, `score_cells`) `chunk` cells at a time, each
+bucket's last chunk padded to `chunk` rows; on the card each chunk is one
+replay of a CUDA graph captured once a bucket cap (`_ChunkGraph`).  When a
 capacity flag fires in any frame (a run table's `rcap`, or a flag the
 segment_fn returns with `returns_overflow`), the whole batch re-runs
 through `fallback_segment_fn`, the exact twin; without one the port warns
@@ -41,17 +44,24 @@ Each half is a root span of `utils.profiler` (`scoring.start`,
 `scoring.wait`), and the layers under them are its children: the
 segmentation backend's, `extract.stage_a`, `scoring.copy_out`;
 `scoring.flags`, `scoring.fallback`, one `extract.bucket` a size bucket
-(`clahe.bucket`, `resize.chunk` and `scoring.score_cells` a chunk),
-`scoring.fetch`.  The start half draws the batch id and the handle
-carries it, so both halves' spans share it.  The first B ints of the
-handle's host copy are each frame's overflow reasons, a bitmask
-(`ops.extract.OVERFLOW_REASONS`), nonzero where a capacity flag fired;
-the counters `fallback.batches` and `fallback.<reason>` read it.
+(`clahe.bucket`, then a chunk's `stage_b.replay` on the card, its
+`resize.chunk` and `scoring.score_cells` elsewhere), `scoring.fetch`.
+The counters `chunks`, `stage_b.graph_chunks` (the chunks replayed),
+`stage_b.eager_chunks` (the others) and `stage_b.captures` (graphs
+captured) say how often the graphs engage.  The start half draws the
+batch id and the handle carries it, so both halves' spans share it.  The
+first B ints of the handle's host copy are each frame's overflow
+reasons, a bitmask (`ops.extract.OVERFLOW_REASONS`), nonzero where a
+capacity flag fired; the counters `fallback.batches` and
+`fallback.<reason>` read it.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
+from collections import OrderedDict
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -59,12 +69,14 @@ import torch
 
 from cell_image_analysis_tpu_torch.models.ensemble import ensemble_votes
 from cell_image_analysis_tpu_torch.models.svm import SVMParams, decision_function
+from cell_image_analysis_tpu_torch.ops.clahe import bucket_caps
 from cell_image_analysis_tpu_torch.ops.extract import (
     OVERFLOW_REASONS,
-    preprocess_buckets,
+    clahe_buckets,
     stage_a_reasons,
 )
 from cell_image_analysis_tpu_torch.ops.fft_features import fft_features
+from cell_image_analysis_tpu_torch.ops.resize import resize_cells
 from cell_image_analysis_tpu_torch.utils.profiler import count, new_batch, span
 
 
@@ -291,21 +303,153 @@ def _overflowed(pend: dict) -> tuple:
     return (any_process(fired) if isinstance(pend["mesh"], GlobalMesh) else fired), reasons
 
 
+def _chunk_rows(model, params: ScoringParams, eq: torch.Tensor, heights: torch.Tensor,
+                widths: torch.Tensor, out_size: int, min_votes: int) -> torch.Tensor:
+    """The (C, D) score rows of C CLAHE'd crops `eq` (C, cap, cap) with
+    sides (C,): resize, `score_cells`, `_score_rows`.  Stage B's chunk,
+    eager or captured in a `_ChunkGraph`."""
+    with span("resize.chunk"):
+        cells = resize_cells(eq, heights, widths, out_size=out_size)
+    with span("scoring.score_cells"):
+        return _score_rows(score_cells(model, params, cells[..., None], min_votes=min_votes))
+
+
+def _padded_chunk_rows(model, params: ScoringParams, eq: torch.Tensor, heights: torch.Tensor,
+                       widths: torch.Tensor, chunk: int, out_size: int,
+                       min_votes: int) -> torch.Tensor:
+    """`_chunk_rows` of n <= chunk crops padded to `chunk` rows (zero crops
+    of the full side), as a `_ChunkGraph` computes them; the n real rows."""
+    n, cap = eq.shape[0], eq.shape[-1]
+    if n < chunk:
+        eq = torch.cat([eq, eq.new_zeros((chunk - n, cap, cap))])
+        heights, widths = (torch.cat([s, s.new_full((chunk - n,), cap)])
+                           for s in (heights, widths))
+    return _chunk_rows(model, params, eq, heights, widths, out_size, min_votes)[:n]
+
+
+class _ChunkGraph:
+    """`_chunk_rows` of `chunk` crops at one bucket cap, captured once as a
+    CUDA graph: static inputs (crops, and sides in two rows), the graph and
+    its output rows.  A replay reads the model's and the params' memory, so
+    it sees their in-place updates.  Rows past a short chunk keep the
+    previous chunk's inputs (at first zero crops of the full side)."""
+
+    def __init__(self, model, params: ScoringParams, chunk: int, cap: int, out_size: int,
+                 min_votes: int, device: torch.device, stream, pool):
+        self.eq = torch.zeros((chunk, cap, cap), dtype=torch.float32, device=device)
+        self.sides = torch.full((2, chunk), cap, dtype=torch.int32, device=device)
+
+        def body():
+            return _chunk_rows(model, params, self.eq, self.sides[0], self.sides[1], out_size,
+                               min_votes)
+
+        # warm-up on the capture stream: cuDNN's and cuFFT's plans, the
+        # FFT geometry, outside the capture
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                body()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = body()
+        count("stage_b.captures")
+
+    def replay(self, eq: torch.Tensor, sides: torch.Tensor) -> torch.Tensor:
+        """The rows of n <= chunk crops `eq` (n, cap, cap) with `sides`
+        (2, n) int32; valid until the next replay."""
+        n = eq.shape[0]
+        self.eq[:n].copy_(eq)
+        self.sides[:, :n].copy_(sides)
+        self.graph.replay()
+        return self.out[:n]
+
+
+class _GraphFamily(NamedTuple):
+    """The chunk graphs of one (device, chunk, out_size, min_votes, model,
+    params), a graph a bucket cap, in one memory pool; it holds the model
+    and the params, so that their ids are not reused while it lives."""
+
+    model: object
+    params: ScoringParams
+    pool: object
+    graphs: dict
+
+
+_GRAPH_FAMILIES: OrderedDict = OrderedDict()
+_MAX_GRAPH_FAMILIES = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """One side stream a device for every warm-up and capture: cuBLAS keeps
+    a workspace (32 MiB on the H100) for each stream it runs on."""
+    return torch.cuda.Stream(device)
+
+
+def _chunk_graphs(pend: dict, device: torch.device, caps: tuple):
+    """cap -> `_ChunkGraph` for each of `caps` on `device`, or None where
+    the chunks run eagerly: CPU tensors, or a capture already under way.
+    Every missing cap is captured at once, so a handle's first batch
+    captures all its buckets, rare ones included."""
+    model, params = pend["model"], pend["params"]
+    if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return None
+    key = (device, pend["chunk"], pend["out_size"], pend["min_votes"], id(model), id(params))
+    fam = _GRAPH_FAMILIES.pop(key, None)
+    if fam is None:
+        fam = _GraphFamily(model, params, torch.cuda.graph_pool_handle(), {})
+    _GRAPH_FAMILIES[key] = fam
+    while len(_GRAPH_FAMILIES) > _MAX_GRAPH_FAMILIES:
+        _GRAPH_FAMILIES.popitem(last=False)
+    with torch.cuda.device(device):
+        for cap in caps:
+            if cap not in fam.graphs:
+                fam.graphs[cap] = _ChunkGraph(model, params, pend["chunk"], cap,
+                                              pend["out_size"], pend["min_votes"], device,
+                                              _capture_stream(device), fam.pool)
+    return fam.graphs
+
+
 def _bucket_rows(pend: dict) -> torch.Tensor:
-    """Launches the size-bucket loop (CLAHE, resize, `score_cells`) of one
-    device's handle; returns its (N, D) score rows on the device."""
-    B, ccap, _ = pend["shape"]
+    """Launches the size-bucket loop (CLAHE, then resize and `score_cells`
+    `chunk` cells at a time) of one device's handle; returns its (N, D)
+    score rows on the device.  Each bucket's last chunk is padded to
+    `chunk` rows; on the card each chunk is a replay of its cap's
+    `_ChunkGraph` (span `stage_b.replay`), elsewhere `_chunk_rows` runs
+    eagerly, unpadded where the CAE is in train mode."""
+    B, ccap, full_cap = pend["shape"]
     N = B * ccap
     heights_h, widths_h, valid_h = (pend["ints"][B + k * N:B + (k + 1) * N] for k in range(3))
     crops, heights, widths = pend["crops"], pend["heights"], pend["widths"]
+    model, params, chunk = pend["model"], pend["params"], pend["chunk"]
+    out_size, min_votes = pend["out_size"], pend["min_votes"]
     rows = torch.zeros((N, _FUSED_D), dtype=torch.float32, device=crops.device)
-    for ids, cells in preprocess_buckets(crops, heights, widths, heights_h, widths_h,
-                                         valid_h.bool(), caps=pend["caps"], chunk=pend["chunk"],
-                                         out_size=pend["out_size"],
-                                         clip_limit=pend["clip_limit"]):
-        with span("scoring.score_cells"):
-            rows[ids] = _score_rows(score_cells(pend["model"], pend["params"],
-                                                cells[..., None], min_votes=pend["min_votes"]))
+    # a CAE in train mode runs eagerly and unpadded: its BatchNorm
+    # statistics would see the padding rows
+    train = any(m.training for m in model.modules())
+    graphs = None if train else _chunk_graphs(pend, crops.device,
+                                              bucket_caps(pend["caps"], full_cap))
+    with torch.cuda.device(crops.device) if graphs is not None else nullcontext():
+        for idx, cap_b, eq_all in clahe_buckets(crops, heights, widths, heights_h, widths_h,
+                                                valid_h.bool(), caps=pend["caps"],
+                                                clip_limit=pend["clip_limit"]):
+            if graphs is not None:
+                sides = torch.stack([heights, widths])[:, idx]
+            for start in range(0, idx.numel(), chunk):
+                count("chunks")
+                ids = idx[start:start + chunk]
+                eq = eq_all[start:start + chunk]
+                if graphs is not None:
+                    count("stage_b.graph_chunks")
+                    with span("stage_b.replay"):
+                        rows[ids] = graphs[cap_b].replay(eq, sides[:, start:start + chunk])
+                    continue
+                count("stage_b.eager_chunks")
+                rows[ids] = _padded_chunk_rows(model, params, eq, heights[ids], widths[ids],
+                                               len(ids) if train else chunk, out_size,
+                                               min_votes)
     return rows
 
 

@@ -17,7 +17,10 @@ stage-B split that screening and training share.
   `ops.extract.preprocess_buckets` and the CAE's upsample stopped using
   `repeat_interleave`: the parent's loop and upsample are copied here as
   the reference, on the inputs of tests/test_torch_pipeline.py and
-  tests/test_torch_screening.py.
+  tests/test_torch_screening.py, with each size bucket's last chunk padded
+  to `chunk` rows as stage B scores it since its chunks became fixed-shape
+  (the padding's own effect, against unpadded chunks, is held in
+  tests/test_torch_stage_b_graph.py).
 """
 
 import contextlib
@@ -195,10 +198,16 @@ def _parent_wait(pend):
                               clip_limit=pend["clip_limit"], ns_cap=ns_cap)
         for start in range(0, idx.numel(), chunk):
             ids = idx[start:start + chunk]
-            cells = resize_cells(eq_all[start:start + chunk], heights[ids], widths[ids],
-                                 out_size=pend["out_size"])
+            eq, h, w = eq_all[start:start + chunk], heights[ids], widths[ids]
+            n = len(ids)
+            if n < chunk:           # the last chunk padded: zero crops of the full side
+                eq = torch.cat([eq, torch.zeros((chunk - n, cap_b, cap_b))])
+                h, w = (torch.cat([s, torch.full((chunk - n,), cap_b, dtype=s.dtype)])
+                        for s in (h, w))
+            cells = resize_cells(eq, h, w, out_size=pend["out_size"])
             rows[ids] = scoring._score_rows(scoring.score_cells(
-                pend["model"], pend["params"], cells[..., None], min_votes=pend["min_votes"]))
+                pend["model"], pend["params"], cells[..., None],
+                min_votes=pend["min_votes"]))[:n]
     pool = torch.nonzero(valid_h).flatten()
     return rows[pool].numpy(), label_ids[pool].numpy(), area[pool].numpy()
 
