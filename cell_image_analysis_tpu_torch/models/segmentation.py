@@ -1,4 +1,4 @@
-"""Segmentation backends: raw seg channels -> instance label maps or masks.
+"""Segmentation backends: raw seg channels -> instance label maps.
 
 Counterpart of `cell_image_analysis_tpu/models/segmentation.py`:
 
@@ -7,10 +7,10 @@ Counterpart of `cell_image_analysis_tpu/models/segmentation.py`:
   maps connected components (`ops.cc.label_components`, the CC kernel on
   the GPU);
 - `ThresholdBackend`: the threshold segment_fn of
-  `pipeline.scoring.score_frames_fused` — the boolean mask
-  (`returns_mask`, stage A through the run-length CC) or, as its exact
-  twin, the `threshold_segment` label maps (stage A through the pixel
-  regionprops);
+  `pipeline.scoring.score_frames_fused`, returning the `threshold_segment`
+  label maps; like the other backends, stage A takes them through the
+  run-length regionprops (`runs_props`), and its `exact_twin()` through
+  the pixel regionprops;
 - `StarDistBackend`: the U-Net on a device, returning `(labels, overflow)`
   per frame batch, where `overflow` ORs the tiled rasterizer's per-tile
   cap, the NMS pair budget and the candidate cap.  Its `exact_twin()` is
@@ -108,47 +108,33 @@ def threshold_segment(seg_channels: torch.Tensor, threshold_percentile: float = 
                       pmin: float = 3.0, pmax: float = 99.8, connectivity: int = 1,
                       opening: bool = True) -> torch.Tensor:
     """`threshold_mask`, then connected components: (B, H, W) int32 label
-    maps numbered in raster order."""
+    maps numbered in raster order.  The components are the span
+    `segmentation.cc`."""
     mask = threshold_mask(seg_channels, threshold_percentile=threshold_percentile,
                           pmin=pmin, pmax=pmax, opening=opening)
-    labels, _ = label_components(mask, connectivity=connectivity)
+    with span("segmentation.cc"):
+        labels, _ = label_components(mask, connectivity=connectivity)
     return labels
 
 
 class ThresholdBackend:
-    """Threshold segment_fn for `pipeline.scoring.score_frames_fused`.
+    """Threshold segment_fn for `pipeline.scoring.score_frames_fused`: the
+    `threshold_segment` label maps.
 
-    By default it returns the boolean masks (`returns_mask`): stage A runs
-    through the run-length connected components, and a run-table overflow
-    re-runs the batch through `exact_twin()`, which returns the
-    `threshold_segment` label maps for the pixel regionprops."""
+    `runs_props` routes stage A through the run-length label regionprops,
+    whose run-table overflow re-runs the batch through `exact_twin()`;
+    False routes it through the pixel regionprops (the exact twin)."""
 
-    returns_mask = True
-
-    def __init__(self, cfg: SegConfig = SegConfig()):
+    def __init__(self, cfg: SegConfig = SegConfig(), runs_props: bool = True):
         self.cfg = cfg
+        self.runs_props = runs_props
 
-    def exact_twin(self) -> _ThresholdLabels:
-        return _ThresholdLabels(self.cfg)
-
-    def _kw(self) -> dict:
-        return dict(threshold_percentile=self.cfg.threshold_percentile,
-                    pmin=self.cfg.norm_pmin, pmax=self.cfg.norm_pmax)
+    def exact_twin(self) -> ThresholdBackend:
+        return ThresholdBackend(self.cfg, runs_props=False)
 
     def __call__(self, seg_channels: torch.Tensor) -> torch.Tensor:
-        return threshold_mask(seg_channels, **self._kw())
-
-
-class _ThresholdLabels(ThresholdBackend):
-    """`ThresholdBackend.exact_twin()`: the `threshold_segment` label maps."""
-
-    returns_mask = False
-
-    def exact_twin(self) -> _ThresholdLabels:
-        return self
-
-    def __call__(self, seg_channels: torch.Tensor) -> torch.Tensor:
-        return threshold_segment(seg_channels, **self._kw())
+        return threshold_segment(seg_channels, threshold_percentile=self.cfg.threshold_percentile,
+                                 pmin=self.cfg.norm_pmin, pmax=self.cfg.norm_pmax)
 
 
 class StarDistBackend:
@@ -159,7 +145,6 @@ class StarDistBackend:
     U-Net built from `variables` goes to `device`, by default the card; a
     `model` passed in stays where it is."""
 
-    returns_mask = False
     returns_overflow = True
 
     def __init__(self, variables: dict | None, cfg: SegConfig = SegConfig(), device=None,
@@ -232,8 +217,6 @@ class CellposeBackend:
     moving pixels), `cellpose.seeds`, `cellpose.qc_iterations` (the
     batch's heat-map steps), `cellpose.removed_flow`,
     `cellpose.removed_small`."""
-
-    returns_mask = False
 
     def __init__(self, arrays: dict | None, cfg: CellposeConfig = CellposeConfig(), device=None,
                  runs_props: bool = True, model=None):
@@ -320,8 +303,8 @@ def select_backend(seg_cfg: SegConfig, cell_capacity: int, unet_variables=None, 
     backend `unet_variables` are the Cellpose weights (a dict of
     Cellpose-named arrays, `io.artifacts.load_cellpose_weights`), required,
     and the backend is `CellposeBackend` at `CellposeConfig()`.  Otherwise
-    the threshold backend: the mask route with the label route as its
-    exact twin.  An unknown backend name raises ValueError."""
+    `ThresholdBackend` and its exact twin.  An unknown backend name raises
+    ValueError."""
     if seg_cfg.backend not in BACKENDS:
         raise ValueError(f"select_backend: unknown segmentation backend {seg_cfg.backend!r}; "
                          f"known: {BACKENDS}")

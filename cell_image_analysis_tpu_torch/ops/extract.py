@@ -4,20 +4,22 @@ Counterpart of `cell_image_analysis_tpu/ops/extract.py`: regionprops ->
 geometric QC -> the first `cell_capacity` passing labels in ascending
 order -> (crop_capacity)^2 crop gather -> bbox-rectangle mean/std
 intensity QC -> survivors repacked to the front (`_candidates_from_props`).
-The regionprops come from one of three routes:
+Every segmentation backend returns label maps, and their regionprops come
+from one of two routes:
 
-- `extract_candidates`: label maps through the pixel regionprops (the
-  exact route of both overflow fallbacks);
-- `extract_candidates_from_labels_runs`: label maps through the run-length
-  regionprops (the StarDist backend's fast route);
-- `extract_candidates_from_mask`: boolean masks through the run-length
-  connected components (the threshold backend's fast route).
+- `extract_candidates_from_labels_runs`: the run-length regionprops (every
+  backend's main route; a row with more than `rcap` runs sets the
+  overflow flag);
+- `extract_candidates`: the pixel regionprops (the exact twins' route,
+  which every overflow re-runs).
 
 The static capacities and their truncation are kept exactly: they decide
 which cells survive.  Batched over frames.
 
-`stage_a` picks the route by the segment_fn's flags (`stage_a_reasons`
-also says which capacity fired, `OVERFLOW_REASONS`); `preprocess_buckets`
+`stage_a` picks the route by the segment_fn's `runs_props` flag
+(`stage_a_reasons` also says which capacity fired, `OVERFLOW_REASONS`);
+neither holds the label maps through the crop gather, which sets the
+peak of device memory, unless they are returned; `preprocess_buckets`
 is stage B, CLAHE once a size bucket (`clahe_buckets`, whose buckets the
 screening path, `pipeline.scoring`, resizes and scores itself) and the
 resize in chunks, which the host-facing forms share:
@@ -47,7 +49,7 @@ from cell_image_analysis_tpu_torch.ops import gather_rows, nonzero_static
 from cell_image_analysis_tpu_torch.ops.clahe import clahe_bucket, size_buckets
 from cell_image_analysis_tpu_torch.ops.regionprops import qc_mask, regionprops
 from cell_image_analysis_tpu_torch.ops.resize import resize_cells
-from cell_image_analysis_tpu_torch.ops.runs import regionprops_from_labels, regionprops_from_mask
+from cell_image_analysis_tpu_torch.ops.runs import regionprops_from_labels
 from cell_image_analysis_tpu_torch.utils.profiler import count, span
 
 # the overflow reasons of a frame, bit i for OVERFLOW_REASONS[i]: the
@@ -140,10 +142,11 @@ def _select(props, green: torch.Tensor, label_capacity: int, cell_capacity: int,
                      std=std, n_geometry=geo.sum(dim=1).int())
 
 
-def _candidates_from_props(props, green: torch.Tensor, label_capacity: int,
-                           cell_capacity: int, crop_capacity: int, border_margin: int,
-                           min_area: int, max_area: int, max_eccentricity: float,
-                           min_mean_intensity: float, min_std_intensity: float) -> Candidates:
+def _candidates_from_props(props, green: torch.Tensor, label_capacity: int = 1024,
+                           cell_capacity: int = 512, crop_capacity: int = 192,
+                           border_margin: int = 10, min_area: int = 200, max_area: int = 8000,
+                           max_eccentricity: float = 0.95, min_mean_intensity: float = 0.5,
+                           min_std_intensity: float = 0.1) -> Candidates:
     s = _select(props, green.float(), label_capacity=label_capacity,
                 cell_capacity=cell_capacity, crop_capacity=crop_capacity,
                 border_margin=border_margin, min_area=min_area, max_area=max_area,
@@ -202,69 +205,53 @@ def extract_candidates(
         min_mean_intensity=min_mean_intensity, min_std_intensity=min_std_intensity)
 
 
-def extract_candidates_from_mask(
-    mask: torch.Tensor, green: torch.Tensor, label_capacity: int = 1024,
-    cell_capacity: int = 512, crop_capacity: int = 192, border_margin: int = 10,
-    min_area: int = 200, max_area: int = 8000, max_eccentricity: float = 0.95,
-    min_mean_intensity: float = 0.5, min_std_intensity: float = 0.1, rcap: int = 32,
-    connectivity: int = 1,
-):
-    """Stage A from boolean masks (B, H, W) through the run-length
-    connected components.  Returns (Candidates, run-table overflow (B,));
-    where the flag is set the caller re-runs the exact label route."""
-    props, overflow = regionprops_from_mask(mask, capacity=label_capacity, rcap=rcap,
-                                            connectivity=connectivity)
-    cand = _candidates_from_props(
-        props, green, label_capacity=label_capacity, cell_capacity=cell_capacity,
-        crop_capacity=crop_capacity, border_margin=border_margin, min_area=min_area,
-        max_area=max_area, max_eccentricity=max_eccentricity,
-        min_mean_intensity=min_mean_intensity, min_std_intensity=min_std_intensity)
-    return cand, overflow
-
-
-def stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwargs: dict):
-    """Segmentation and stage-A candidates of a batch by the segment_fn's
-    route: boolean masks (`returns_mask`) through the run-length connected
-    components, label maps with `runs_props` through the run-length
-    regionprops, other label maps through the pixel regionprops.  Returns
-    (Candidates, overflow (B,), the segment_fn's masks or label maps)."""
-    cand, reasons, out = stage_a_reasons(segment_fn, segs, greens, candidate_kwargs)
-    return cand, reasons != 0, out
+def stage_a(segment_fn, segs: torch.Tensor, greens: torch.Tensor, candidate_kwargs: dict,
+            return_labels: bool = False):
+    """Segmentation and stage-A candidates of a batch: the segment_fn's
+    label maps through the run-length regionprops where it has
+    `runs_props`, else through the pixel regionprops.  Returns
+    (Candidates, overflow (B,), the label maps with `return_labels`, else
+    None)."""
+    cand, reasons, labels = stage_a_reasons(segment_fn, segs, greens, candidate_kwargs,
+                                            return_labels)
+    return cand, reasons != 0, labels
 
 
 def stage_a_reasons(segment_fn, segs: torch.Tensor, greens: torch.Tensor,
-                    candidate_kwargs: dict):
+                    candidate_kwargs: dict, return_labels: bool = False):
     """`stage_a` with each frame's overflow reasons in place of its flag:
     (Candidates, reasons (B,) int32, bit i set where OVERFLOW_REASONS[i]
-    fired, the segment_fn's output).  A segment_fn with `returns_overflow`
-    gives its reasons through `overflow_reasons(segs)` where it has one."""
+    fired, the label maps with `return_labels`, else None).  A segment_fn
+    with `returns_overflow` gives its reasons through
+    `overflow_reasons(segs)` where it has one."""
     kw = dict(candidate_kwargs)
     reasons = None
     if getattr(segment_fn, "returns_overflow", False):
         if hasattr(segment_fn, "overflow_reasons"):
-            out, reasons = segment_fn.overflow_reasons(segs)
+            labels, reasons = segment_fn.overflow_reasons(segs)
         else:
-            out, seg_ovf = segment_fn(segs)
+            labels, seg_ovf = segment_fn(segs)
             reasons = seg_ovf.int() << OVERFLOW_REASONS.index("segmentation")
     else:
-        out = segment_fn(segs)
+        labels = segment_fn(segs)
     with span("extract.stage_a"):
-        if getattr(segment_fn, "returns_mask", False):
+        capacity = kw.get("label_capacity", 1024)
+        if getattr(segment_fn, "runs_props", False):
             kw.pop("fg_fraction", None)
-            cand, ovf = extract_candidates_from_mask(out, greens, **kw)
-        elif getattr(segment_fn, "runs_props", False):
-            kw.pop("fg_fraction", None)
-            kw.pop("connectivity", None)
-            cand, ovf = extract_candidates_from_labels_runs(out, greens, **kw)
+            props, ovf = regionprops_from_labels(labels, capacity=capacity,
+                                                 rcap=kw.pop("rcap", 32))
         else:
             kw.pop("rcap", None)
-            kw.pop("connectivity", None)
-            cand = extract_candidates(out, greens, **kw)
+            props = regionprops(labels, capacity=capacity,
+                                fg_fraction=kw.pop("fg_fraction", 0.25))
             ovf = torch.zeros(segs.shape[0], dtype=torch.bool, device=segs.device)
+        if not return_labels:
+            labels = None   # 4 bytes a pixel, not to be held through the crop gather
+        cand = _candidates_from_props(props, greens, **kw)
         code = ovf.int() << OVERFLOW_REASONS.index("stage_a")
         if reasons is not None:
             code = code | reasons.int()
-    return cand, code, out
+    return cand, code, labels
 
 
 def preprocess_buckets(crops: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
@@ -390,8 +377,8 @@ def extract_cells_frames(segs: torch.Tensor, greens: torch.Tensor, segment_fn,
     over the pool.  Returns (cells (n, out, out) float32 numpy in
     frame-major, label-ascending order, stats dict of numpy arrays with
     `frame_index`); with `return_labels` also the (B, H, W) uint16 label
-    maps as numpy, for which the segment_fn must return label maps."""
-    cand, ovf, seg_out = stage_a(segment_fn, segs, greens, candidate_kwargs)
+    maps as numpy."""
+    cand, ovf, labels = stage_a(segment_fn, segs, greens, candidate_kwargs, return_labels)
     if bool(ovf.any()):
         if fallback_segment_fn is not None:
             return extract_cells_frames(segs, greens, fallback_segment_fn, chunk=chunk, caps=caps,
@@ -401,8 +388,6 @@ def extract_cells_frames(segs: torch.Tensor, greens: torch.Tensor, segment_fn,
             "extract_cells_frames: capacity overflow with no fallback_segment_fn — "
             "candidate extraction may have dropped or corrupted cells",
             RuntimeWarning, stacklevel=2)
-    if return_labels and getattr(segment_fn, "returns_mask", False):
-        raise ValueError("return_labels needs a segment_fn that returns label maps")
     B, ccap, full_cap = cand.crops.shape[:3]
     flat = {k: getattr(cand, k).reshape(-1) for k in (
         "heights", "widths", "valid", "label_ids", "area", "eccentricity", "mean_intensity",
@@ -414,7 +399,7 @@ def extract_cells_frames(segs: torch.Tensor, greens: torch.Tensor, segment_fn,
     stats["frame_index"] = (pool // ccap).numpy()
     labels16 = None
     if return_labels:
-        labels16 = seg_out.int().cpu().numpy().astype(np.uint16)
+        labels16 = labels.int().cpu().numpy().astype(np.uint16)
     crops = cand.crops.reshape(B * ccap, full_cap, full_cap).float().contiguous()
     slots = torch.zeros((B * ccap, out_size, out_size), dtype=torch.float32, device=segs.device)
     for ids, c in preprocess_buckets(crops, flat["heights"].int(), flat["widths"].int(),

@@ -6,14 +6,14 @@ per-frame overflow flag), and area, bbox, centroid and eccentricity follow
 from closed-form per-run moments reduced per region.
 
 - `regionprops_from_labels`: runs of constant positive label of instance
-  label maps (the StarDist backend's stage A);
-- `regionprops_from_mask`: runs of a boolean mask (`run_table`, top-k
-  form), joined into components by neighbour-min hooks over the runs of
-  adjacent rows (`cc_runs`) and numbered in scipy's raster order
-  (`_component_numbers`) — the threshold backend's stage A, which never
-  materializes a label map;
-- `labels_from_mask`: the same components as full label maps (API and
-  tests).
+  label maps — stage A's main route, for every segmentation backend (the
+  exact twins take the pixel regionprops, `ops.regionprops`);
+- `labels_from_mask`: the connected components of boolean masks as label
+  maps, by the run path (API and tests; the pipeline labels masks with
+  `ops.cc.label_components`): runs of the mask (`run_table`, top-k form),
+  joined into components by neighbour-min hooks over the runs of adjacent
+  rows (`cc_runs`) and numbered in scipy's raster order
+  (`_component_numbers`).
 
 The six moments are integers, so the port computes them in int64 and
 reduces them with `ops.segsum.segment_sums` (the CUDA segment-sum kernel on
@@ -219,9 +219,9 @@ def labels_from_mask(mask: torch.Tensor, rcap: int = 64, connectivity: int = 1) 
     """(labels int32, count int32, overflow bool) of boolean masks (H, W)
     or (B, H, W), with a leading (B,) on count and overflow in the second
     form: the label maps in scipy numbering by the run path, the API and
-    test counterpart of `ops.cc.label_components` (the pipeline never
-    materializes them).  A pixel takes the component of its run's rank in
-    the row's table; past `rcap` runs it takes the last slot's, as JAX."""
+    test counterpart of `ops.cc.label_components`.  A pixel takes the
+    component of its run's rank in the row's table; past `rcap` runs it
+    takes the last slot's, as JAX."""
     single = mask.dim() == 2
     m = (mask[None] if single else mask).bool()
     table = run_table(m, rcap=rcap)
@@ -233,17 +233,3 @@ def labels_from_mask(mask: torch.Tensor, rcap: int = 64, connectivity: int = 1) 
         return labels[0], count[0], table.overflow[0]
     return labels, count, table.overflow
 
-
-def regionprops_from_mask(mask: torch.Tensor, capacity: int, rcap: int = 64,
-                          connectivity: int = 1):
-    """RegionProps of the connected components of boolean masks (B, H, W),
-    indexed by scipy component number - 1, and the (B,) run-table overflow
-    flag.  Never materializes a label map."""
-    B, h, w = mask.shape
-    table = run_table(mask, rcap=rcap)
-    valid = table.end > 0
-    comp, _ = _component_numbers(cc_runs(table, connectivity=connectivity), valid)
-    seg = torch.clamp(torch.where(comp > 0, comp - 1, capacity), max=capacity).reshape(B, -1)
-    props = _run_moments(seg, _row_index(B, h, rcap, mask.device), table.start.reshape(B, -1),
-                         table.end.reshape(B, -1), valid.reshape(B, -1), capacity, h, w)
-    return props, table.overflow

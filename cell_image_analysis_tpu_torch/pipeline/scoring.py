@@ -26,13 +26,13 @@ indices, so that every process returns the whole batch's result, as JAX's
 decode of the all-gathered buffer does.  Every process must make the same
 calls.
 
-Stage A (`ops.extract.stage_a`) takes one of JAX `_stage_a_one`'s three
-routes, by the segment_fn's flags: boolean masks (`returns_mask`) through
-the run-length connected components, label maps with `runs_props` through
-the run-length regionprops, other label maps through the pixel
-regionprops; stage B is CLAHE a size bucket (`ops.extract.clahe_buckets`)
-and `_chunk_rows` (resize, `score_cells`) `chunk` cells at a time, each
-bucket's last chunk padded to `chunk` rows; on the card each chunk is one
+Stage A (`ops.extract.stage_a`) takes the segment_fn's label maps through
+one of JAX `_stage_a_one`'s two label routes, by its `runs_props` flag:
+the run-length regionprops (every backend's main route) or the pixel
+regionprops (the exact twins'); stage B is CLAHE a size bucket
+(`ops.extract.clahe_buckets`) and `_chunk_rows` (resize, `score_cells`)
+`chunk` cells at a time, each bucket's last chunk padded to `chunk` rows;
+on the card each chunk is one
 replay of a CUDA graph captured once a bucket cap (`_ChunkGraph`).  When a
 capacity flag fires in any frame (a run table's `rcap`, or a flag the
 segment_fn returns with `returns_overflow`), the whole batch re-runs

@@ -85,15 +85,12 @@ class ProductionMutantScreening:
         self.timer = StageTimer()
         self.meter = ThroughputMeter()
         self.decode_seconds = 0.0  # TIFF decode, summed over the ingest workers
-        # the threshold backend's mask route (run-length connected
-        # components) or raster-capped StarDist with the run-length label
-        # regionprops; the exact twin takes every overflow re-run
+        # the backend's label maps through the run-length regionprops
+        # (StarDist raster-capped); the exact twin takes every overflow re-run
         if mesh is not None and config.seg.backend == "cellpose":
             raise ValueError("the cellpose backend screens on one device: no mesh")
-        segment, self._segment_fallback, self._unet = select_backend(
+        self._segment, self._segment_fallback, self._unet = select_backend(
             config.seg, config.extract.cell_capacity, unet_variables, self.device)
-        self._segment_mask = segment if segment.returns_mask else None
-        self._segment = None if segment.returns_mask else segment
         # plate-scale backends: the capacities scale with the frame's area
         # (the defaults are tuned for frames up to 1024^2), keyed by shape
         self._plate_backends: dict = {}
@@ -107,7 +104,7 @@ class ProductionMutantScreening:
         """(segment_fn, fallback_fn) with area-scaled capacities."""
         scale = capacity_scale(h, w)
         if not self._stardist() or scale == 1:
-            return self._segment_mask or self._segment, self._segment_fallback
+            return self._segment, self._segment_fallback
         key = (h, w)
         if key not in self._plate_backends:
             primary = StarDistBackend(None, scaled_seg_config(self._segment.cfg, scale),

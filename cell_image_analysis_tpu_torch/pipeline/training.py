@@ -17,8 +17,7 @@ stage:
   5. generate_final_report: training_report.txt.
 
 The segmentation backend is the screener's (`models.segmentation.
-select_backend`), except that the threshold backend takes its label route
-(CC kernel, pixel regionprops): the report's solidity needs label maps.
+select_backend`); its label maps also give the report's solidity.
 Everything runs on `device` (default: the card; without one and without
 `device="cpu"` the constructor raises).  With a `mesh` (`parallel.mesh`)
 `fit_cae` trains data-parallel over it, and everything else runs on its
@@ -95,10 +94,8 @@ class ImprovedAnomalyDetectionTraining:
             device = mesh.home
         self.device = artifacts.resolve_device(device)
         self.timer = StageTimer()
-        segment, self._segment_fallback, self._unet = select_backend(
+        self._segment, self._segment_fallback, self._unet = select_backend(
             config.seg, config.extract.cell_capacity, unet_variables, self.device)
-        # solidity needs label maps: the threshold backend takes its label route
-        self._segment = self._segment_fallback if segment.returns_mask else segment
         os.makedirs(output_dir, exist_ok=True)
 
     # stage 1 -----------------------------------------------------------------

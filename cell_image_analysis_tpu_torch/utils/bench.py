@@ -18,8 +18,8 @@ protocol and metric names:
 The backends run at the JAX bench's settings (its `utils/bench.py:130-184,
 222-253`): StarDist at K = 256 candidates, raster patch 96, raster cap 128
 (the label capacity), NMS pair budget 8192, cell capacity 128, rcap 32;
-the threshold backend's mask route at label capacity 4096, cell capacity
-128, fg_fraction 0.12; both at chunk 32, caps (64, 96), with the backend's
+the threshold backend at label capacity 4096, cell capacity 128,
+fg_fraction 0.12; both at chunk 32, caps (64, 96), with the backend's
 exact twin (`exact_twin()`) as the overflow fallback.  Above 1024^2 the
 StarDist capacities scale with the frame (`plate_settings`, the rule of
 the screener); the plate-scale rows, JAX's `scripts/bench_2048.py`
@@ -238,7 +238,7 @@ class _CountedCalls:
 
     def __init__(self, fn):
         self.fn, self.calls = fn, 0
-        for flag in ("returns_mask", "returns_overflow", "runs_props"):
+        for flag in ("returns_overflow", "runs_props"):
             if hasattr(fn, flag):
                 setattr(self, flag, getattr(fn, flag))
 

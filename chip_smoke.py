@@ -20,8 +20,8 @@ Phases (any failure exits non-zero before the last line is printed):
    equal, library call `index_add_`; the fused CLAHE kernel on 32 random
    cells at each bucket capacity, on the main path's own size buckets
    (StarDist stage A of the 16 frames; its row sums these) and on the
-   threshold path's (the mask route's stage A; the row's `threshold_*`
-   keys): bit-equal; `label_components` (the tile CC kernel, compaction
+   threshold path's (the threshold backend's stage A; the row's
+   `threshold_*` keys): bit-equal; `label_components` (the tile CC kernel, compaction
    included) on the 16 frames' threshold masks at connectivity 1 and 2:
    labels and counts equal to `label_components_plain`, with the eager
    compaction that the parent ran after its kernel timed for the record;
@@ -46,20 +46,21 @@ Phases (any failure exits non-zero before the last line is printed):
    second run must all be > 0, CLAHE at most once a non-empty size bucket,
    and no overflow flag may fire;
 4. the port on the GPU against the port on the CPU on one 512^2 frame,
-   StarDist and both threshold routes: identical cell sets, predictions
+   StarDist, the threshold backend and its exact twin: identical cell sets, predictions
    and scores within 1e-4, except what `utils.parity` allows and lists
    (label pixels within 1e-3 px of a polygon boundary, decisions within
    1e-4 of their threshold);
 5. threshold screening of the 16 frames at the bench's threshold
-   settings: (a) the mask route with the exact label route as fallback,
-   run twice, the second timed; (b) the label route alone (CC kernel,
-   pixel regionprops); (c) the mask route at rcap 8, whose fallback must
-   fire.  (a) and (b) give the same cells, areas and predictions, scores
-   within 1e-4; (c) equals (b) exactly.  The counts are set to 0 before
-   each run and read after it: (a) launches segment sum and CLAHE (at
-   most once a size bucket), (b) the CC kernel too (its row's count), and
-   (c) as many CC calls as (b) (one per batch; each call is
-   `ops.cuda.cc.KERNELS_PER_CALL` launches);
+   settings: (a) the threshold backend (CC kernel, run-length
+   regionprops) with its exact twin as fallback, run twice, the second
+   timed; (b) the twin alone (CC kernel, pixel regionprops); (c) the
+   backend at rcap 8, whose fallback must fire once.  (a) and (b) give the
+   same cells, areas and predictions, scores within 1e-4; (c) equals (b)
+   exactly.  The counts are set to 0 before each run and read after it:
+   (a) and (b) launch the CC kernel (one call a batch, each
+   `ops.cuda.cc.KERNELS_PER_CALL` launches; (a)'s is its row's count),
+   segment sum and CLAHE (at most once a size bucket), and (c) twice as
+   many CC calls as (b) (the backend's and the twin's);
 6. the StarDist exact twin (scatter rasterizer, K^2 NMS pairs, pixel
    regionprops) on the 16 frames: phase 3's cells, areas and scores
    within 1e-4, except the listed cells of polygons that the scatter
@@ -210,8 +211,8 @@ Phases (any failure exits non-zero before the last line is printed):
    equals phase 3's under the sharded contract (frame_index, label ids and
    areas equal, scores within 1e-5, predictions and rates equal; without
    phase 3 the same call is made here first), and each worker launched the
-   Winograd, segment-sum and CLAHE kernels; (b) the threshold backend's
-   label route at the size of JAX's `scripts/dryrun_dcn.py` (8 frames of
+   Winograd, segment-sum and CLAHE kernels; (b) the threshold backend
+   at the size of JAX's `scripts/dryrun_dcn.py` (8 frames of
    128^2, 4 cells each) and its three checks, each worker against its own
    single-process run: masked counts, the detectors' counts of 64 cells,
    `score_frames_fused` (the CC kernel too).  The workers' wall seconds,
@@ -758,7 +759,7 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     res["clahe_cells"] = dict(max_abs_err=0.0, bound_by="bytes", library_ms=None, **row,
                               threshold_ms=thr["ms"], threshold_bound_ms=thr["bound_ms"])
 
-    # CC on the 16 frames' threshold masks (the threshold label route's input)
+    # CC on the 16 frames' threshold masks (the threshold backend's input)
     masks = threshold_mask(main["segs"])
     log(f"[2] label_components input: {tuple(masks.shape)} masks, "
         f"{float(masks.float().mean()):.4f} foreground")
@@ -840,7 +841,7 @@ class _Recording:
 
     def __init__(self, fn):
         self.fn, self.calls, self.overflow = fn, 0, None
-        for flag in ("returns_mask", "returns_overflow", "runs_props"):
+        for flag in ("returns_overflow", "runs_props"):
             if hasattr(fn, flag):
                 setattr(self, flag, getattr(fn, flag))
 
@@ -954,17 +955,18 @@ def phase_main_path(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens,
     return launches, (scores, stats), backend.fn
 
 
-def _screen_threshold(torch, d, segs, greens, params_model, rcap=32, label_route=False,
+def _screen_threshold(torch, d, segs, greens, params_model, rcap=32, twin_alone=False,
                       fallback=True):
-    """One threshold screening on device d; returns ((scores, stats), the
-    fallback's recorder)."""
+    """One threshold screening on device d, through the backend or with
+    `twin_alone` its exact twin; returns ((scores, stats), the fallback's
+    recorder)."""
     from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
     from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
 
     model, params = params_model
     backend = ThresholdBackend()
     twin = _Recording(backend.exact_twin())
-    fn = backend.exact_twin() if label_route else backend
+    fn = backend.exact_twin() if twin_alone else backend
     out = score_frames_fused(model, params, segs, greens, fn, rcap=rcap,
                              fallback_segment_fn=twin if fallback else None, **THRESH_KW)
     return out, twin
@@ -990,12 +992,12 @@ def phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a) -> None:
         with torch.inference_mode():
             lab, det = predict_instances(segs, backend.model, seg_cfg)
         labels.append(lab[0].cpu())
-        mask_route, twin = _screen_threshold(torch, d, segs, greens, (model, params))
+        main, twin = _screen_threshold(torch, d, segs, greens, (model, params))
         if twin.calls:
-            raise AssertionError(f"[4] threshold mask route overflowed on {d}")
-        label_route, _ = _screen_threshold(torch, d, segs, greens, (model, params),
-                                           label_route=True, fallback=False)
-        thresh.append((mask_route, label_route))
+            raise AssertionError(f"[4] the threshold backend overflowed on {d}")
+        twin_alone, _ = _screen_threshold(torch, d, segs, greens, (model, params),
+                                          twin_alone=True, fallback=False)
+        thresh.append((main, twin_alone))
     # the CPU run is the reference; label maps may differ only at knife edges
     flips = {(0, lab): n for lab, n in boundary_flips(
         labels[1], labels[0], det.points[0], det.dists[0], det.keep[0]).items()}
@@ -1005,10 +1007,10 @@ def phase_gpu_vs_cpu(torch, dev, unet_vars, seg_cfg, stage_a) -> None:
         f"max score difference {report['max_score_diff']:.3e}; knife-edge cells "
         f"{report['knife_edge_cells']}; within {TOL} of a threshold "
         f"{report['near_threshold']}")
-    (gpu_mask, gpu_label), (cpu_mask, cpu_label) = thresh
-    for name, ref, got in (("mask route GPU vs CPU", cpu_mask, gpu_mask),
-                           ("label route GPU vs CPU", cpu_label, gpu_label),
-                           ("GPU mask route vs label route", gpu_label, gpu_mask)):
+    (gpu_main, gpu_twin), (cpu_main, cpu_twin) = thresh
+    for name, ref, got in (("backend GPU vs CPU", cpu_main, gpu_main),
+                           ("exact twin GPU vs CPU", cpu_twin, gpu_twin),
+                           ("GPU backend vs exact twin", gpu_twin, gpu_main)):
         report = compare_screens(ref, got, {}, thr, tol=TOL)
         _check_result(*got, 1)
         log(f"[4] 512^2 frame, threshold {name}: {report['n_cells']} cells, same cell set; "
@@ -1041,34 +1043,36 @@ def phase_threshold(torch, dev, segs, greens, params_model) -> dict:
         return out, _read_launches()
 
     (_, _), t_first = run()
-    log(f"[5] (a) mask route, first run (warm-up) {t_first:.2f} s")
+    log(f"[5] (a) threshold backend, first run (warm-up) {t_first:.2f} s")
     ((res_a, twin_a), t_a), launches_a = counted()
-    ((res_b, _), t_b), launches_b = counted(label_route=True, fallback=False)
+    ((res_b, _), t_b), launches_b = counted(twin_alone=True, fallback=False)
     ((res_c, twin_c), t_c), launches_c = counted(rcap=8)
     n_frames = segs.shape[0]
     n = _check_result(*res_a, n_frames)
-    log(f"[5] (a) mask route + fallback: {n} cells, {n / t_a:.1f} cells/s, {t_a:.3f} s wall "
-        f"({n_frames / t_a:.2f} frames/s); fallback calls {twin_a.calls}; "
-        f"launches {launches_a}")
-    log(f"[5] (b) label route (CC kernel, pixel regionprops): {len(res_b[1]['area'])} cells, "
+    log(f"[5] (a) backend (CC kernel, run-length regionprops) + fallback: {n} cells, "
+        f"{n / t_a:.1f} cells/s, {t_a:.3f} s wall ({n_frames / t_a:.2f} frames/s); fallback "
+        f"calls {twin_a.calls}; launches {launches_a}")
+    log(f"[5] (b) exact twin (CC kernel, pixel regionprops): {len(res_b[1]['area'])} cells, "
         f"{t_b:.3f} s wall (one run); launches {launches_b}")
-    log(f"[5] (c) mask route at rcap 8: fallback calls {twin_c.calls}, {t_c:.3f} s wall "
-        f"(one run, both routes); launches {launches_c}")
+    log(f"[5] (c) backend at rcap 8: fallback calls {twin_c.calls}, {t_c:.3f} s wall "
+        f"(one run, backend and twin); launches {launches_c}")
     if twin_a.calls != 0:
-        raise AssertionError("[5] (a) the mask route overflowed at rcap 32")
+        raise AssertionError("[5] (a) the threshold backend overflowed at rcap 32")
     if twin_c.calls != 1:
-        raise AssertionError("[5] (c) the fallback did not fire at rcap 8")
-    missing = [k for k in ("segment_sum", "clahe_cells") if launches_a[k] <= 0]
-    missing += [f"(b) {k}" for k in ("cc_tile_labels", "segment_sum", "clahe_cells")
-                if launches_b[k] <= 0]
+        raise AssertionError("[5] (c) the fallback did not fire once at rcap 8")
+    missing = [f"({run}) {k}" for run, launches in (("a", launches_a), ("b", launches_b))
+               for k in ("cc_tile_labels", "segment_sum", "clahe_cells") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"[5] kernels of the threshold path were not launched: {missing}")
     if max(launches_a["clahe_cells"], launches_b["clahe_cells"]) > N_BUCKETS:
         raise AssertionError(f"[5] more CLAHE launches than the {N_BUCKETS} size buckets")
-    # the fallback re-runs the whole batch through the label route once
-    if launches_c["cc_tile_labels"] != launches_b["cc_tile_labels"]:
-        raise AssertionError(f"[5] (c) made {launches_c['cc_tile_labels']} CC calls, the label "
-                             f"route {launches_b['cc_tile_labels']}")
+    if launches_a["cc_tile_labels"] != launches_b["cc_tile_labels"]:
+        raise AssertionError(f"[5] (a) made {launches_a['cc_tile_labels']} CC calls, the twin "
+                             f"{launches_b['cc_tile_labels']}")
+    # the fallback re-runs the whole batch through the twin once
+    if launches_c["cc_tile_labels"] != 2 * launches_b["cc_tile_labels"]:
+        raise AssertionError(f"[5] (c) made {launches_c['cc_tile_labels']} CC calls, the twin "
+                             f"{launches_b['cc_tile_labels']}")
     report = compare_screens(res_b, res_a, {}, float(params_model[1].ensemble_mse_threshold),
                              tol=TOL)
     log(f"[5] (a) vs (b): same {report['n_cells']} cells and areas; max score difference "
@@ -1581,8 +1585,8 @@ def phase_threshold_screener(torch, dev, unet_vars, folders: dict, out_root: str
 
     # the same 16 frames once more, directly, and one frame through
     # extract_quality_cells, with every kernel call held against its plain
-    # version: the mask route's run table and crops at the screener's
-    # capacities, the CC kernel and the pixel regionprops of the label route
+    # version: the CC kernel, the run table and the crops at the screener's
+    # capacities
     decoded = [split_channels(imread(path)) for path in files]
     seg, green = decoded[0]
     seg_fn, kwargs = screener.fused_arguments(*seg.shape)
@@ -2683,10 +2687,10 @@ def phase_dist(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens, tmp_root: 
         f"{wall:.1f} s (interpreters, build check, loads and the warm-up run included), peak "
         f"memory {', '.join(f'{g:.2f}' for g in out['stardist']['peak_gib'])} GiB a worker; "
         f"launches {launches} [{smi}]")
-    # threshold at JAX's dryrun size, its label route (the CC kernel), the
-    # three checks of scripts/dryrun_dcn.py
+    # threshold at JAX's dryrun size (the CC kernel), the three checks of
+    # scripts/dryrun_dcn.py
     th_dir = os.path.join(tmp_root, "dist_threshold")
-    results, wall = _dist_run(dryrun, th_dir, ["--label-route"])
+    results, wall = _dist_run(dryrun, th_dir, [])
     launches_th = _dist_launches(results, "fused",
                                  ("segment_sum", "clahe_cells", "cc_tile_labels"))
     r0 = results[0]
@@ -2694,7 +2698,7 @@ def phase_dist(torch, dev, unet_vars, seg_cfg, stage_a, segs, greens, tmp_root: 
                             peak_gib=[r["peak_gib"] for r in results], launches=launches_th,
                             counts=r0["counts"], score_cells=r0["score_cells"]["counts"],
                             fused=r0["fused"]["counts"], cells=r0["fused"]["cells"])
-    log(f"[14] threshold label route over {dryrun.N_PROCS} processes on cuda:0 (gloo), the checks "
+    log(f"[14] threshold backend over {dryrun.N_PROCS} processes on cuda:0 (gloo), the checks "
         f"of scripts/dryrun_dcn.py: masked counts {r0['counts']}; score_cells counts "
         f"{r0['score_cells']['counts']} (cons/mod/ens/fft of {r0['score_cells']['cells']} "
         f"cells); score_frames_fused {r0['fused']['cells']} cells, counts "
@@ -3214,7 +3218,7 @@ def main() -> int:
         params_model = load_scoring_params(device=dev)
         if 5 in phases:
             launches_a, launches_b = phase_threshold(torch, dev, segs, greens, params_model)
-            launches["cc_tile_labels"] = launches_b["cc_tile_labels"]
+            launches["cc_tile_labels"] = launches_a["cc_tile_labels"]
             if 2 in phases:
                 kernels["clahe_cells"]["threshold_launches"] = launches_a["clahe_cells"]
             mark("5")
@@ -3320,18 +3324,19 @@ def main() -> int:
                          "grid_sample steps of Cellpose's dynamics.steps2D_interp"),
     }
     # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
-    # phase 5 (b), the label route; the flow following: phase 17, Cellpose); `launches_per_batch`: the kernel
-    # launches on the card they make (a CC call is the module's
-    # KERNELS_PER_CALL); `screening_launches`: wrapper calls while phase 7
-    # screened its folders; `training_launches`: wrapper calls while phase
-    # 10 trained (its timed run); `unet_training_launches`: wrapper calls
+    # phase 5 (a), the threshold backend; the flow following: phase 17,
+    # Cellpose); `launches_per_batch`: the kernel launches on the card
+    # they make (a CC call is the module's KERNELS_PER_CALL);
+    # `screening_launches`: wrapper calls while phase 7 screened its
+    # folders; `training_launches`: wrapper calls while phase 10 trained
+    # (its timed run); `unet_training_launches`: wrapper calls
     # while phase 11's fit_unet trained the U-Net (forward and data
     # gradient; the Winograd row also gets the step's numbers);
     # `mesh_launches`: wrapper calls on each route of phase 12 (a_*: the 16
     # frames sharded, b/c: the 2048^2 tilers, d_*: the 4096^2 plate tiled and
     # whole), each counted from 0; `dist_launches`: wrapper calls in the
     # timed runs of phase 14's workers, summed over them (StarDist, and the
-    # threshold label route); `bench_launches`: wrapper calls while
+    # threshold backend); `bench_launches`: wrapper calls while
     # phase 13's run_bench ran each backend (two warm-ups of batch 0, two
     # timed runs of 3 batches), `bench_batch_launches`: in one held bench
     # batch of 16 frames, each counted from 0; `plate_launches`: wrapper calls while

@@ -9,7 +9,7 @@ script holds that choice against 1, 2 and 4 blocks a cell, calling the
 kernel's C entry beneath the wrapper: on the bench's StarDist main path
 (16 frames of 1024^2, seed 7, 80 cells each; its cap-64 bucket) at
 bucket sizes from 32 cells to all of them, on both sides of the switch,
-and on every bucket of the threshold path's mask route.  Each launch is
+and on every bucket of the threshold path.  Each launch is
 checked bit-equal to `clahe_cells_plain`; the time is torch.profiler's
 device time over 20 launches (`chip_smoke.device_ms`).  Prints the card's
 name and power limit first.

@@ -17,10 +17,9 @@ dryrun, in the same order, against its own single-process run:
    64 seed-made cells, each process scoring its rows over its shards and
    the counts summed over the processes, equal the single-process counts;
 3. `fused`: `score_frames_fused` on 8 seed-made frames of 128^2 (4 cells
-   each; the threshold backend's mask route, or with `--label-route` its
-   label route, which runs the CC kernel) over the global mesh: the same
-   cells (frame_index and areas equal), floats within 1e-5 (the sorted
-   reconstruction MSE too), predictions and rates equal.
+   each; the threshold backend, which runs the CC kernel) over the global
+   mesh: the same cells (frame_index and areas equal), floats within 1e-5
+   (the sorted reconstruction MSE too), predictions and rates equal.
 
 `--checks` may add `overflow`: frames whose run-table flag fires in one
 process's frames only; every process must re-run through the exact twin
@@ -36,7 +35,7 @@ global mesh's scores and statistics, which every process holds).
 
     python scripts/dryrun_dist_torch.py                       # 2 x 4, cuda:0, gloo
     python scripts/dryrun_dist_torch.py --device cpu          # 2 x 4, CPU, gloo
-    python scripts/dryrun_dist_torch.py --local-shards 2 --label-route
+    python scripts/dryrun_dist_torch.py --local-shards 2
     python scripts/dryrun_dist_torch.py --local-shards 2 --stardist F.npz
 
 The workers run on cuda:0 unless `--device` names another device; without
@@ -284,14 +283,12 @@ def _check_fused(g, dev, args, model, params, result: dict) -> tuple:
 
     segs, greens = dryrun_frames()
     backend = ThresholdBackend()
-    twin = backend.exact_twin()
-    fn = twin if args.label_route else backend
-    kw = dict(FUSED_KW, fallback_segment_fn=twin)
-    ref = _fused(model, params, segs, greens, fn, dev, **kw)
+    kw = dict(FUSED_KW, fallback_segment_fn=backend.exact_twin())
+    ref = _fused(model, params, segs, greens, backend, dev, **kw)
     _sync(dev)
     _reset_launches()
     t0 = time.perf_counter()
-    got = _fused(model, params, segs, greens, fn, dev, mesh=g, **kw)
+    got = _fused(model, params, segs, greens, backend, dev, mesh=g, **kw)
     _sync(dev)
     wall = time.perf_counter() - t0
     launches = _launches()
@@ -303,16 +300,16 @@ def _check_fused(g, dev, args, model, params, result: dict) -> tuple:
                        np.sort(ref[0]["reconstruction_mse"]), rtol=0, atol=1e-5):
         raise AssertionError("fused: the sorted reconstruction MSE differs by more than 1e-5")
     result["fused"] = dict(cells=n, counts=detector_counts(got[0]), seconds=wall,
-                           launches=launches, route="label" if args.label_route else "mask")
+                           launches=launches)
     return got
 
 
 class _Counted:
-    """A segment_fn that counts its calls."""
+    """A segment_fn that counts its calls (the exact twin: no flag, so the
+    pixel regionprops)."""
 
     def __init__(self, fn):
         self.fn, self.calls = fn, 0
-        self.returns_mask = getattr(fn, "returns_mask", False)
 
     def __call__(self, x):
         self.calls += 1
@@ -442,8 +439,6 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     ap.add_argument("--local-shards", type=int, default=4)
     ap.add_argument("--checks", default=",".join(CHECKS))
-    ap.add_argument("--label-route", action="store_true",
-                    help="check 3 through the threshold backend's label route (CC)")
     ap.add_argument("--stardist", default=None, help="an .npz of frames (segs, greens)")
     ap.add_argument("--out", default=None, help="directory for the workers' results")
     ap.add_argument("--timeout", type=float, default=120.0, help="seconds for the workers")

@@ -19,10 +19,10 @@ once to warm up, then:
    calls (best of 3), the CLAHE -> resize -> scoring bucket loop being
    the remainder of the full run.  StarDist: percentile + U-Net forward,
    the rest of `predict_instances` (top-K, NMS, rasterize), stage A (run
-   regionprops, QC, crops).  Threshold: `threshold_mask` (order
-   statistics, opening), stage A on the mask (run table, hook CC, run
-   moments, QC, crops); and, outside the total, stage A of the exact
-   label route (CC kernel, pixel regionprops, QC, crops);
+   regionprops, QC, crops).  Threshold: `threshold_segment` (order
+   statistics, opening, the CC kernel), stage A (run regionprops, QC,
+   crops); and, outside the total, stage A of the exact twin (pixel
+   regionprops, QC, crops);
 2. traces `--span-batches` batches with `torch.profiler`, each started
    before the one before it is waited on (the screener's loop), and
    prints the device time by kernel, the summed device time against the
@@ -160,14 +160,12 @@ def main() -> int:
     from cell_image_analysis_tpu_torch.models.segmentation import (
         StarDistBackend,
         ThresholdBackend,
-        threshold_mask,
         threshold_segment,
     )
     from cell_image_analysis_tpu_torch.models.stardist import predict_instances
     from cell_image_analysis_tpu_torch.ops.extract import (
         extract_candidates,
         extract_candidates_from_labels_runs,
-        extract_candidates_from_mask,
     )
     from cell_image_analysis_tpu_torch.ops.percentile import normalize_percentile
     from cell_image_analysis_tpu_torch.pipeline.scoring import score_frames_fused
@@ -231,7 +229,7 @@ def main() -> int:
 
         def __init__(self, fn):
             self.fn = fn
-            for flag in ("returns_mask", "returns_overflow", "runs_props"):
+            for flag in ("returns_overflow", "runs_props"):
                 if hasattr(fn, flag):
                     setattr(self, flag, getattr(fn, flag))
 
@@ -262,17 +260,15 @@ def main() -> int:
         if args.backend == "stardist":
             (_, t_unet) = timed(lambda: backend.model(normalize_percentile(segs)[..., None]))
             (labels, _), t_seg = timed(lambda: predict_instances(segs, backend.model, cfg))
-            _, t_a = timed(lambda: extract_candidates_from_labels_runs(labels, greens, **stage_a))
-            stages = [("percentile + U-Net", t_unet), ("top-K + NMS + raster", t_seg - t_unet),
-                      ("stage A", t_a)]
+            stages = [("percentile + U-Net", t_unet), ("top-K + NMS + raster", t_seg - t_unet)]
         else:
-            mask, t_seg = timed(lambda: threshold_mask(segs))
-            _, t_a = timed(lambda: extract_candidates_from_mask(mask, greens, **stage_a))
-            stages = [("threshold mask", t_seg), ("stage A (mask route)", t_a)]
-            labels, t_lab = timed(lambda: threshold_segment(segs))
+            labels, t_seg = timed(lambda: threshold_segment(segs))
+            stages = [("threshold mask + CC", t_seg)]
             label_kw = dict(stage_a, fg_fraction=0.12)
             label_kw.pop("rcap")
             _, t_la = timed(lambda: extract_candidates(labels, greens, **label_kw))
+        _, t_a = timed(lambda: extract_candidates_from_labels_runs(labels, greens, **stage_a))
+        stages.append(("stage A", t_a))
     fallback_runs.clear()
     (scores, stats), t_full = timed(full)
     n_fallback = len(fallback_runs) // 3
@@ -287,8 +283,7 @@ def main() -> int:
           + ("; the loop's remainder and the total include that second run" if n_fallback
              else ""))
     if args.backend == "threshold":
-        print(f"  exact label route, outside the total: threshold_segment {t_lab:.2f} ms "
-              f"(threshold mask + CC kernel + compaction), stage A {t_la:.2f} ms "
+        print(f"  exact twin's stage A, outside the total: {t_la:.2f} ms "
               "(pixel regionprops, QC, crops)")
 
     from torch.profiler import ProfilerActivity, profile

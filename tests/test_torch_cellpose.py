@@ -320,8 +320,6 @@ class _ReferenceLabels:
     """A segment_fn that returns the reference's label maps: of its own
     network, or (`net`) of the port's network's output."""
 
-    returns_mask = False
-
     def __init__(self, state, cfg, net=None):
         self.state, self.cfg, self.net = state, cfg, net
 

@@ -92,7 +92,7 @@ def test_every_process_holds_the_same_result(dryrun_out):
     assert all(r["world"] == 2 and r["global_shards"] == 8 for r in results)
     for check in ("counts", "score_cells"):
         assert results[0][check] == results[1][check]
-    for key in ("cells", "counts", "route"):
+    for key in ("cells", "counts"):
         assert results[0]["fused"][key] == results[1]["fused"][key]
     (a, sa), (b, sb) = fused
     assert a.keys() == b.keys() and sa.keys() == sb.keys()

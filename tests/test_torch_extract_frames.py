@@ -5,7 +5,7 @@ stage-B split that screening and training share.
 - `extract_cells_frames` on a batch of frames equals the per-frame
   `extract_cells_chunked`, bit for bit, with frame-major `frame_index`;
   it equals JAX's `extract_cells_frames` on frames where no flag fires
-  (the threshold backend's label route), atol 1e-5 as
+  (the threshold backend's exact twin), atol 1e-5 as
   tests/test_extract_frames.py; its label maps come back as uint16.
 - A batch whose NMS pair budget overflows (the budget cut to 64 pairs here
   so that a small frame overflows; at the default capacities 1024^2 frames
@@ -64,7 +64,7 @@ def _frames(n=3, size=256, n_cells=8, seed=0):
 
 def test_batch_equals_per_frame_bit_for_bit():
     segs, greens = _frames()
-    twin = ThresholdBackend().exact_twin()        # the label route
+    twin = ThresholdBackend().exact_twin()        # the pixel regionprops
     cells, stats, labels16 = extract_cells_frames(torch.tensor(segs), torch.tensor(greens), twin,
                                                   return_labels=True, **_KW)
     per_cells, counts = [], []
@@ -121,10 +121,20 @@ def test_overflowing_batch_yields_the_exact_twins_cells():
 
 
 def test_label_maps_need_a_label_route():
-    segs, greens = _frames(n=1)
-    with pytest.raises(ValueError, match="label maps"):
-        extract_cells_frames(torch.tensor(segs), torch.tensor(greens), ThresholdBackend(),
-                             return_labels=True, **_KW)
+    """Every backend returns label maps: `return_labels` gives the
+    threshold backend's, `threshold_segment`'s as uint16, beside the cells
+    of its exact twin."""
+    segs, greens = _frames(n=2)
+    args = (torch.tensor(segs), torch.tensor(greens))
+    cells, stats, labels16 = extract_cells_frames(*args, ThresholdBackend(), return_labels=True,
+                                                  **_KW)
+    assert labels16.dtype == np.uint16
+    np.testing.assert_array_equal(labels16, threshold_segment(args[0]).numpy())
+    ref_cells, ref_stats = extract_cells_frames(*args, ThresholdBackend().exact_twin(), **_KW)
+    assert len(cells) == len(ref_cells) > 5
+    np.testing.assert_array_equal(cells, ref_cells)
+    for k in ref_stats:
+        np.testing.assert_array_equal(stats[k], ref_stats[k], err_msg=k)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -117,8 +117,6 @@ def test_overflow_decision_is_taken_in_wait(scoring):
     calls = []
 
     class Twin:
-        returns_mask = False
-
         def __call__(self, s):
             calls.append(s.shape)
             return tight["fallback_segment_fn"](s)

@@ -11,9 +11,10 @@ The frames are small and dense, so the bench's sparse NMS pair budget
 pair set, and the overflow tests hold the fallback to the exact twin
 (scatter rasterizer, K^2 pairs, pixel regionprops) against JAX's.
 
-The threshold backend runs at the bench's threshold settings: the mask
-route with the exact label route as its fallback, forced to fire at
-rcap 2 on both sides."""
+The threshold backend runs at the bench's threshold settings against
+JAX's mask route: the port's CC labels through the run-length
+regionprops, with the exact twin (pixel regionprops) as its fallback,
+forced to fire at rcap 2 on both sides."""
 
 import warnings
 
@@ -151,7 +152,7 @@ class _Recording:
 
     def __init__(self, fn):
         self.fn, self.calls = fn, 0
-        for flag in ("returns_mask", "returns_overflow", "runs_props"):
+        for flag in ("returns_overflow", "runs_props"):
             if hasattr(fn, flag):
                 setattr(self, flag, getattr(fn, flag))
 
@@ -184,7 +185,7 @@ def test_threshold_score_frames_fused_matches_jax(rcap):
     assert report["n_cells"] >= 8
     _assert_rates_close(ref, got, report)
 
-    # the label route alone gives the same screening, and after a forced
+    # the exact twin alone gives the same screening, and after a forced
     # fallback the very same result
     label = score_frames_fused(model, params, segs_t, greens_t, backend.exact_twin(), **kw)
     compare_screens(label, got, {}, float(params.ensemble_mse_threshold))

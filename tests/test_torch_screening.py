@@ -33,6 +33,7 @@ from cell_image_analysis_tpu_torch.config import (
     capacity_scale,
 )
 from cell_image_analysis_tpu_torch.io.artifacts import load_unet_variables
+from cell_image_analysis_tpu_torch.models.segmentation import ThresholdBackend
 from cell_image_analysis_tpu_torch.pipeline.screening import ProductionMutantScreening
 from cell_image_analysis_tpu_torch.utils.synthetic import make_dataset
 
@@ -289,7 +290,7 @@ def test_stardist_screener_matches_jax(tmp_path):
     (res, det, out, printed, screener), (res_j, det_j, _, printed_j, _) = (runs["port"],
                                                                            runs["jax"])
     assert set(res) == {"wildtype", "mutantA"}
-    assert screener._segment.cfg.raster_cap == 64 and screener._segment_mask is None
+    assert screener._segment.cfg.raster_cap == 64 and screener._segment.runs_props
     assert _per_file_counts(printed) == _per_file_counts(printed_j)
     near = _assert_detailed_equal(det, det_j)
     assert near <= 2
@@ -323,8 +324,9 @@ def test_capacities_scale_with_the_frame_area():
     thr = ProductionMutantScreening(STORE, PipelineConfig(seg=SegConfig(backend="threshold")),
                                     device="cpu")
     fn_t, kw_t = thr.fused_arguments(2048, 2048)
-    assert fn_t.returns_mask and not kw_t["fallback_segment_fn"].returns_mask
+    assert fn_t.runs_props and not kw_t["fallback_segment_fn"].runs_props
     assert abs(kw_t["fg_fraction"] - 0.12) < 1e-12 and kw_t["cell_capacity"] == 2048
     # no U-Net: the threshold backend runs, at the StarDist fg_fraction
     none = ProductionMutantScreening(STORE, PipelineConfig(), device="cpu")
-    assert none._segment_mask is not None and none.fused_arguments(64, 64)[1]["fg_fraction"] == 0.25
+    assert isinstance(none._segment, ThresholdBackend)
+    assert none.fused_arguments(64, 64)[1]["fg_fraction"] == 0.25

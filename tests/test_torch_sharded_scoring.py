@@ -195,7 +195,6 @@ class _Recording:
 
     def __init__(self, fn):
         self.fn, self.frames = fn, []
-        self.returns_mask = getattr(fn, "returns_mask", False)
 
     def __call__(self, x):
         self.frames.append(x.shape[0])

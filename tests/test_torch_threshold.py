@@ -111,10 +111,10 @@ def test_threshold_backend_flags_and_twin():
     segs = torch.from_numpy(_segs(3, 128, 6, n_frames=1))
     backend = ThresholdBackend()
     twin = backend.exact_twin()
-    assert backend.returns_mask and not twin.returns_mask
-    assert not getattr(twin, "runs_props", False)
-    mask = backend(segs)
-    assert mask.dtype == torch.bool
-    labels = twin(segs)
+    assert backend.runs_props and not twin.runs_props
+    assert twin.cfg is backend.cfg
+    labels = backend(segs)
+    assert labels.dtype == torch.int32
     np.testing.assert_array_equal(labels.numpy(), threshold_segment(segs).numpy())
-    np.testing.assert_array_equal((labels > 0).numpy(), mask.numpy())
+    np.testing.assert_array_equal(twin(segs).numpy(), labels.numpy())
+    np.testing.assert_array_equal((labels > 0).numpy(), threshold_mask(segs).numpy())

@@ -53,7 +53,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 THRESH_STAGE_A = dict(label_capacity=4096, cell_capacity=128, fg_fraction=0.12)
 
 START_SPANS = {
-    "threshold": ["segmentation.threshold", "extract.stage_a", "runs.cc", "scoring.copy_out"],
+    "threshold": ["segmentation.threshold", "segmentation.cc", "extract.stage_a",
+                  "scoring.copy_out"],
     "stardist": ["segmentation.normalize", "segmentation.unet", "segmentation.topk",
                  "nms.star_nms", "rasterize", "extract.stage_a", "scoring.copy_out"],
 }
@@ -116,7 +117,7 @@ def test_a_traced_batch_records_the_span_tree(scoring, unet_variables, route):
     roots = [i for i, r in enumerate(recs) if r.parent < 0]
     assert [recs[i].name for i in roots] == ["scoring.start", "scoring.wait"]
     start, wait = roots
-    assert _children(recs, start) == [n for n in START_SPANS[route] if n != "runs.cc"]
+    assert _children(recs, start) == START_SPANS[route]
     names = [r.name for r in recs]
     for name in START_SPANS[route] + WAIT_SPANS:
         assert name in names, name
@@ -202,7 +203,7 @@ def test_a_forced_overflow_counts_its_reason_and_runs_the_twin(scoring, unet_var
     calls = []
 
     class Twin:
-        returns_mask, returns_overflow, runs_props = False, True, False
+        returns_overflow, runs_props = True, False
 
         def __call__(self, s):
             calls.append(s.shape[0])
