@@ -65,11 +65,46 @@
 // every pixel pair of the patch is followed by 4 floats, so that 8 tiles x
 // 4 channels land in 32 banks; the partial-Y rows are padded to 136 floats.
 //
+// 5. Activations beside the conv, so that none is a pass of its own over
+//    device memory.  The kernel is templated on two features, and three
+//    instances are built: the plain conv, the prologue, the epilogue (no
+//    network takes both).
+//    - Input prologue (IN_ACT; a pre-activation network such as Cellpose's
+//      BatchNorm + ReLU + conv): the conv reads relu(scale[c] x + shift[b][c])
+//      instead of x.  Once its cp.async copies of a stage have landed, each
+//      thread rewrites its own 16-byte chunks of the patch in shared memory
+//      (one fmaf and one max.NaN a value), before the __syncthreads that
+//      publishes the stage: stage k + 1's right after the wgmma groups of
+//      stage k are issued.  The image's scale and shift are copied into
+//      shared memory after the ring once a block (8 Ci bytes more; Ci <=
+//      6,192).  The transform, the 3xTF32 split and the products are
+//      unchanged.  Measured on an H100 SXM (700 W) at CPnet's 32 convs over
+//      576 tiles of 224^2: the kernel 234.5 ms plain, 258.6 ms with the
+//      prologue (+10%; +19% with scale and shift read from device memory at
+//      every stage, +13% with the rewrite just before the barrier of its own
+//      stage), against the ~100 ms of BatchNorm, ReLU and style passes it
+//      removes.  The ReLU sits behind a kernel argument that the launch
+//      always sets: compiled in unconditionally, it makes ptxas spill in
+//      this instance at 255 registers and the prologue cost +21% (the two
+//      builds side by side in three runs on the card; keeping the
+//      offsets in one word of bits took the spill away but left +17%).
+//      Only in-frame pixels (rows < h_in, cols < w_in: the caller's frame
+//      before the wrapper's even padding) are rewritten.  The halo that
+//      cp.async zero-fills and the padded row or column stay 0, because SAME
+//      padding pads the *activated* input: relu(shift) there would be a
+//      different conv.  Padded channels get scale = shift = 0.  shift is
+//      read with a batch stride of 0 (per channel) or Ci (per image).
+//    - Output epilogue (OUT_RELU; a post-activation network such as the
+//      StarDist U-Net): y = relu(y) at the store, as torch.relu_ computes it
+//      (NaN kept, else fmaxf(y, 0)), so the output is bit for bit the plain
+//      conv's followed by relu_.
+//
 // Layouts: x (B, H, W, Ci) NHWC with Ci % 8 == 0; U_hi, U_lo (Co_p/32,
 // Ci/8, 16, 2, 32, 4) = [Co block][Ci slice][position k = 4a + b][input
 // channels 0-3 | 4-7][output channel][4 input channels]; bias (Co,); y (B,
-// H, W, Co).  H and W must be even (the Python wrapper pads).  All
-// transform coefficients are 0, +-1, +-1/2.
+// H, W, Co); scale (Ci,), shift (Ci,) or (B, Ci) when IN_ACT.  H and W must
+// be even (the Python wrapper pads).  All transform coefficients are 0, +-1,
+// +-1/2.
 
 #include <cuda_runtime.h>
 
@@ -99,10 +134,22 @@ constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
 constexpr int P_LD = 4 * CO_BLK + 8;     // partial-Y floats a tile: 4 pixels x 32 channels
 static_assert(PATCH_FLOATS % 4 == 0 && U_FLOATS % 4 == 0,
               "cp.async destinations and wgmma operands must stay 16-byte aligned");
-static_assert(SMEM_BYTES <= 232448, "over the H100's 227 KB of shared memory a block");
+constexpr int SMEM_MAX = 232448;         // the H100's 227 KB of shared memory a block
+static_assert(SMEM_BYTES <= SMEM_MAX, "over the H100's shared memory a block");
 static_assert(NT * P_LD <= STAGES * STAGE_FLOATS, "the partial Y must fit the drained ring");
+static_assert(THREADS % 2 == 0, "a thread copies the same half of every pixel's 8 channels");
 
 __device__ __forceinline__ int pix_off(int pc) { return 8 * pc + 4 * (pc >> 1); }
+
+// torch.relu_ on the card (clamp_min): NaN kept, else fmaxf(v, 0)
+__device__ __forceinline__ float relu(float v) { return v != v ? v : fmaxf(v, 0.f); }
+
+// the same in one instruction, a NaN made the canonical NaN
+__device__ __forceinline__ float relu_nan(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;\n" : "=f"(r) : "f"(v));
+  return r;
+}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -168,11 +215,13 @@ __device__ __forceinline__ uint64_t smem_desc(const float* p) {
          ((uint64_t)(128 >> 4) << 32);
 }
 
+template <bool IN_ACT, bool OUT_RELU>
 __global__ void __launch_bounds__(THREADS, 1)
 winograd_kernel(const float* __restrict__ x, const float* __restrict__ U_hi,
                 const float* __restrict__ U_lo, const float* __restrict__ bias,
-                float* __restrict__ y, int H, int W, int Ci, int Co,
-                int col_blocks, int co_blocks) {
+                const float* __restrict__ scale, const float* __restrict__ shift,
+                float* __restrict__ y, int H, int W, int h_in, int w_in, int Ci, int Co,
+                int shift_stride, int in_relu, int col_blocks, int co_blocks) {
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x;
@@ -204,6 +253,47 @@ winograd_kernel(const float* __restrict__ x, const float* __restrict__ U_hi,
     for (int e = tid; e < U_FLOATS / 4; e += THREADS) {
       cp_async16(uh + 4 * e, U_hi + u0 + 4 * e, true);
       cp_async16(ul + 4 * e, U_lo + u0 + 4 * e, true);
+    }
+  };
+
+  // the input prologue: this thread's own chunks of each stage (the copies of
+  // load_stage's loop), in frame only.  Their patch offsets are the same in
+  // every stage: found once, -1 for a chunk out of frame or beyond the patch.
+  constexpr int ACT_K = (PR * PC * 2 + THREADS - 1) / THREADS;
+  int act_off[ACT_K];
+#pragma unroll
+  for (int k = 0; k < ACT_K; ++k) {
+    const int e = tid + k * THREADS;
+    const int pix = e >> 1;
+    const int pr = pix / PC, pc = pix % PC;
+    const int r = r0 + pr, c = c0 + pc;
+    const bool in = e < PR * PC * 2 && r >= 0 && r < h_in && c >= 0 && c < w_in;
+    act_off[k] = IN_ACT && in ? pr * ROW_F + pix_off(pc) + 4 * (e & 1) : -1;
+  }
+  // this image's scale and shift, copied once into shared memory after the ring
+  float* act_s = smem + STAGES * STAGE_FLOATS;
+  float* act_t = act_s + Ci;
+  auto activate_stage = [&](int chunk) {
+    float* patch = smem + (chunk % STAGES) * STAGE_FLOATS;
+    const int c4 = chunk * CI_CH + 4 * (tid & 1);
+    const float4 s = *reinterpret_cast<const float4*>(act_s + c4);
+    const float4 t = *reinterpret_cast<const float4*>(act_t + c4);
+#pragma unroll
+    for (int k = 0; k < ACT_K; ++k) {
+      if (act_off[k] < 0) continue;
+      float4* p = reinterpret_cast<float4*>(patch + act_off[k]);
+      float4 v = *p;
+      v.x = fmaf(s.x, v.x, t.x);
+      v.y = fmaf(s.y, v.y, t.y);
+      v.z = fmaf(s.z, v.z, t.z);
+      v.w = fmaf(s.w, v.w, t.w);
+      if (in_relu) {                     // always true: see the header, 5.
+        v.x = relu_nan(v.x);
+        v.y = relu_nan(v.y);
+        v.z = relu_nan(v.z);
+        v.w = relu_nan(v.w);
+      }
+      *p = v;
     }
   };
 
@@ -241,6 +331,16 @@ winograd_kernel(const float* __restrict__ x, const float* __restrict__ U_hi,
   for (int s = 0; s < AHEAD; ++s) {
     if (s < n_chunks) load_stage(s);
     cp_async_commit();
+  }
+  if constexpr (IN_ACT) {
+    const float* shift_b = shift + (size_t)b * shift_stride;
+    for (int c = tid; c < Ci; c += THREADS) {
+      act_s[c] = scale[c];
+      act_t[c] = shift_b[c];
+    }
+    __syncthreads();
+    cp_async_wait<AHEAD - 1>();          // this thread's copies of chunk 0 landed
+    activate_stage(0);
   }
 
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
@@ -286,6 +386,14 @@ winograd_kernel(const float* __restrict__ x, const float* __restrict__ U_hi,
         wgmma_m64n32k8(acc[4 * ar + bb], ab[bb], dh + off, 1);
       }
       wgmma_commit();
+    }
+    // the prologue of the next stage, while the tensor cores multiply this
+    // one; the __syncthreads at the top of the next iteration publishes it
+    if constexpr (IN_ACT) {
+      if (chunk + 1 < n_chunks) {
+        cp_async_wait<AHEAD - 1>();      // this thread's copies of chunk + 1 landed
+        activate_stage(chunk + 1);
+      }
     }
   }
   wgmma_wait<0>();
@@ -356,7 +464,11 @@ winograd_kernel(const float* __restrict__ x, const float* __restrict__ U_hi,
       for (int p = 0; p < 4; ++p) {
         const float2 other =
             *reinterpret_cast<const float2*>(smem + t * P_LD + p * CO_BLK + 8 * n + 2 * tq);
-        const float y0 = mine[0][p] + other.x + b0, y1 = mine[1][p] + other.y + b1;
+        float y0 = mine[0][p] + other.x + b0, y1 = mine[1][p] + other.y + b1;
+        if constexpr (OUT_RELU) {
+          y0 = relu(y0);
+          y1 = relu(y1);
+        }
         if (pairs) {
           *reinterpret_cast<float2*>(yp + off[p]) = make_float2(y0, y1);
         } else {
@@ -370,23 +482,25 @@ winograd_kernel(const float* __restrict__ x, const float* __restrict__ U_hi,
 
 constexpr int MAX_DEVICES = 64;  // device ordinals with a remembered attribute
 
-}  // namespace
-
-extern "C" int cia_winograd_conv3x3(const void* x, const void* U_hi, const void* U_lo,
-                                    const void* bias, void* y, int B, int H, int W, int Ci,
-                                    int Co, void* stream) {
-  // the attribute belongs to the current device's copy of the kernel
+template <bool IN_ACT, bool OUT_RELU>
+int launch(const float* x, const float* U_hi, const float* U_lo, const float* bias,
+           const float* scale, const float* shift, float* y, int B, int H, int W, int h_in,
+           int w_in, int Ci, int Co, int shift_stride, cudaStream_t stream) {
+  // the prologue's scale and shift follow the ring in shared memory
+  const long long smem = SMEM_BYTES + (IN_ACT ? 2LL * Ci * sizeof(float) : 0);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  // the attribute belongs to the current device's copy of each instance
   static bool smem_set[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(
-        winograd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    err = cudaFuncSetAttribute(winograd_kernel<IN_ACT, OUT_RELU>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               IN_ACT ? SMEM_MAX : SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     if (dev >= 0 && dev < MAX_DEVICES) smem_set[dev] = true;
   }
-  if (Ci <= 0 || Ci % CI_CH) return (int)cudaErrorInvalidValue;
   const int ho = H / 2, wo = W / 2;
   const long long row_blocks = (ho + TR - 1) / TR;
   const long long col_blocks = (wo + TC - 1) / TC;
@@ -395,8 +509,38 @@ extern "C" int cia_winograd_conv3x3(const void* x, const void* U_hi, const void*
   if (nx == 0 || B == 0) return (int)cudaGetLastError();
   if (nx > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)nx, 1, B);
-  winograd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)U_hi, (const float*)U_lo, (const float*)bias, (float*)y,
-      H, W, Ci, Co, (int)col_blocks, (int)co_blocks);
+  winograd_kernel<IN_ACT, OUT_RELU><<<grid, THREADS, (size_t)smem, stream>>>(
+      x, U_hi, U_lo, bias, scale, shift, y, H, W, h_in, w_in, Ci, Co, shift_stride, 1,
+      (int)col_blocks, (int)co_blocks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// scale == nullptr: no input prologue (shift and shift_stride unused); else
+// shift is (Ci,) with shift_stride 0 or (B, Ci) with shift_stride Ci, and
+// out_relu must be 0
+extern "C" int cia_winograd_conv3x3(const void* x, const void* U_hi, const void* U_lo,
+                                    const void* bias, const void* scale, const void* shift,
+                                    void* y, int B, int H, int W, int h_in, int w_in, int Ci,
+                                    int Co, int shift_stride, int out_relu, void* stream) {
+  if (Ci <= 0 || Ci % CI_CH) return (int)cudaErrorInvalidValue;
+  if (scale != nullptr &&
+      (shift == nullptr || out_relu || (shift_stride != 0 && shift_stride != Ci)))
+    return (int)cudaErrorInvalidValue;
+  const auto* xf = (const float*)x;
+  const auto* uh = (const float*)U_hi;
+  const auto* ul = (const float*)U_lo;
+  const auto* bf = (const float*)bias;
+  const auto* sc = (const float*)scale;
+  const auto* sh = (const float*)shift;
+  auto* yf = (float*)y;
+  auto st = (cudaStream_t)stream;
+  if (scale != nullptr)
+    return launch<true, false>(xf, uh, ul, bf, sc, sh, yf, B, H, W, h_in, w_in, Ci, Co,
+                               shift_stride, st);
+  return out_relu ? launch<false, true>(xf, uh, ul, bf, sc, sh, yf, B, H, W, h_in, w_in, Ci, Co, 0,
+                                        st)
+                  : launch<false, false>(xf, uh, ul, bf, sc, sh, yf, B, H, W, h_in, w_in, Ci, Co,
+                                         0, st);
 }

@@ -11,7 +11,11 @@ and `core.run_net` / `_run_tiled` with `transforms.normalize99`,
   projections leave out the ReLU.  Activations are NHWC, as in
   `models/unet.py`, and every 3x3 conv (32 of them) goes through
   `ops.winograd.winograd_conv3x3`, the Winograd kernel on the card; a 1x1
-  conv is a matmul over the channels.
+  conv is a matmul over the channels.  A 3x3 `_BC` hands its BatchNorm
+  (and a style term, `_StyleBC`) to the conv as a per-channel scale and a
+  per-channel or per-tile shift, with the ReLU: without grad the kernel
+  applies them to its input patch, so the normalized map is never
+  written; under grad the op runs them in PyTorch before the conv.
 - The encoder is four residual blocks (`_ResDown`) with a 2x2 max pool
   before blocks 1-3; the style is the mean of the last block's map over
   its pixels, over its L2 norm; the decoder is four residual blocks
@@ -54,10 +58,13 @@ PAD_DIV = 16          # pad_image_ND: div 16, extra 1
 
 class _BC(nn.Module):
     """Cellpose's `batchconv` (BN, ReLU, k x k conv) or, with relu=False,
-    `batchconv0` (BN, conv), on NHWC maps."""
+    `batchconv0` (BN, conv; 1x1 only), on NHWC maps."""
 
     def __init__(self, ci: int, co: int, k: int, relu: bool = True):
         super().__init__()
+        if k == 3 and not relu:
+            raise ValueError("_BC: a 3x3 conv takes its BatchNorm and ReLU as the Winograd "
+                             "op's input prologue, which always has the ReLU")
         self.relu = relu
         self.bn_weight = nn.Parameter(torch.ones(ci))
         self.bn_bias = nn.Parameter(torch.zeros(ci))
@@ -66,7 +73,10 @@ class _BC(nn.Module):
         self.weight = nn.Parameter(torch.zeros(co, ci, k, k))
         self.bias = nn.Parameter(torch.zeros(co))
 
-    def norm(self, x: torch.Tensor) -> torch.Tensor:
+    def norm(self, x: torch.Tensor) -> tuple:
+        """The BatchNorm as (alpha, shift), BN(x) = alpha x + shift: x's
+        batch statistics in training (the running ones updated), else the
+        running ones."""
         if self.training:
             n = x.numel() // x.shape[-1]
             mean = x.mean((0, 1, 2))
@@ -77,14 +87,24 @@ class _BC(nn.Module):
         else:
             mean, var = self.bn_mean, self.bn_var
         alpha = self.bn_weight / torch.sqrt(var + BN_EPS)
-        return torch.addcmul(self.bn_bias - mean * alpha, x, alpha)
+        return alpha, self.bn_bias - mean * alpha
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm(x)
+    def forward(self, x: torch.Tensor, style: torch.Tensor | None = None) -> torch.Tensor:
+        """x (N, H, W, ci); style (N, ci) or None, added to x before the BN.
+        A 3x3 conv hands relu(BN(x + style)) to the Winograd op as its
+        input prologue, the style folded into a per-tile shift; in training
+        the batch statistics are those of x + style, which is then formed."""
+        if style is not None and self.training:
+            x, style = x + style[:, None, None, :], None
+        alpha, shift = self.norm(x)
+        if style is not None:
+            shift = torch.addcmul(shift, style, alpha)
+        if self.weight.shape[-1] == 3:
+            return winograd.winograd_conv3x3(x, self.weight.permute(2, 3, 1, 0), self.bias,
+                                             in_scale=alpha, in_shift=shift)
+        x = torch.addcmul(shift, x, alpha)
         if self.relu:
             x = torch.relu_(x)
-        if self.weight.shape[-1] == 3:
-            return winograd.winograd_conv3x3(x, self.weight.permute(2, 3, 1, 0), self.bias)
         return torch.matmul(x, self.weight[:, :, 0, 0].t()) + self.bias
 
 
@@ -99,7 +119,7 @@ class _StyleBC(nn.Module):
     def forward(self, style: torch.Tensor, x: torch.Tensor, skip=None) -> torch.Tensor:
         if skip is not None:
             x = x + skip
-        return self.conv(x + self.full(style)[:, None, None, :])
+        return self.conv(x, self.full(style))
 
 
 class _ResDown(nn.Module):

@@ -12,9 +12,12 @@ NHWC throughout, and every 3x3 conv (Conv_0..Conv_12) goes through
 `ops.winograd.winograd_conv3x3`, i.e. the Winograd CUDA kernel on the GPU,
 with a gradient (`WinogradConv3x3Fn`) when grad mode is on: the inference
 callers run without grad (`predict_instances`, and the screening and
-extraction entry points under `torch.inference_mode`).  The 1x1
-heads are matmuls.  The 2x2 max pool is `F.max_pool2d`, whose gradient
-goes to the first maximum of a window, as flax's `nn.max_pool` does.
+extraction entry points under `torch.inference_mode`).  Each 3x3 conv is
+followed by a ReLU, the op's `out_relu` (`_Conv.relu`): without grad the
+kernel applies it at its store, under grad `torch.relu_` does, with the
+same bits.  The 1x1 heads are matmuls.  The 2x2 max pool is
+`F.max_pool2d`, whose gradient goes to the first maximum of a window, as
+flax's `nn.max_pool` does.
 
 Parameters keep the flax names (`convs.Conv_0` .. `convs.Conv_14`, OIHW);
 `io.artifacts.unet_state_from_jax` maps the JAX weights onto them and
@@ -48,6 +51,11 @@ class _Conv(nn.Module):
         if self.weight.shape[-1] == 3:
             return winograd.winograd_conv3x3(x, self.weight.permute(2, 3, 1, 0), self.bias)
         return torch.matmul(x, self.weight[:, :, 0, 0].t()) + self.bias
+
+    def relu(self, x: torch.Tensor) -> torch.Tensor:
+        """relu(conv(x)) of a 3x3 conv: the Winograd op's output ReLU."""
+        return winograd.winograd_conv3x3(x, self.weight.permute(2, 3, 1, 0), self.bias,
+                                         out_relu=True)
 
 
 def _maxpool2(h: torch.Tensor) -> torch.Tensor:
@@ -93,8 +101,8 @@ class StarDistUNet(nn.Module):
         self._head = i
 
     def _block(self, h: torch.Tensor, i: int) -> torch.Tensor:
-        h = torch.relu_(self.convs[f"Conv_{i}"](h))
-        return torch.relu_(self.convs[f"Conv_{i + 1}"](h))
+        h = self.convs[f"Conv_{i}"].relu(h)
+        return self.convs[f"Conv_{i + 1}"].relu(h)
 
     def forward(self, x: torch.Tensor):
         skips, h, i = [], x, 0
@@ -110,7 +118,7 @@ class StarDistUNet(nn.Module):
             h = torch.cat([_up2(h)[:, : skip.shape[1], : skip.shape[2]], skip], dim=-1)
             h = self._block(h, i)
             i += 2
-        feat = torch.relu_(self.convs[f"Conv_{self._head}"](h))
+        feat = self.convs[f"Conv_{self._head}"].relu(h)
         prob = torch.sigmoid(self.convs[f"Conv_{self._head + 1}"](feat))[..., 0]
         return prob, feat
 

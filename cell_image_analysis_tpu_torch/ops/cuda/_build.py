@@ -41,7 +41,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points (all return an int: cudaError_t, or a size)
 _SIGNATURES = {
-    "cia_winograd_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cia_winograd_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cia_segment_sum_i64": [_P, _P, _P, _L, _I, _I, _P],
     "cia_clahe_cells": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
     "cia_cc_label_components": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

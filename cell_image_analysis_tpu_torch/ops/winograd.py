@@ -15,10 +15,19 @@ zero-padded to a multiple of 8 (with U's rows), and U's Co to a multiple
 of the kernel's 32-channel block; U goes in the order the kernel's ring
 stages read it (`kernel_filter_layout`).
 
+The op takes the elementwise activation next to the conv, so that it is
+no pass of its own over device memory on the card: an input prologue
+relu(in_scale x + in_shift) per channel (`in_shift` per channel or per
+image: a pre-activation network's BatchNorm, style term and ReLU) or an
+output ReLU (a post-activation network's).  The kernel applies the
+prologue in shared memory and the ReLU at its store; the plain version composes the same
+arithmetic in PyTorch (`activate_input`, `torch.relu_`).
+
 Under grad mode the op has a gradient (`WinogradConv3x3Fn`): the data
 gradient is itself a SAME 3x3 correlation, of dy with the filter flipped
 and transposed, so it runs on the same kernel; the weight gradient is
-cuDNN's.  Without grad (screening, extraction) the call is the direct one.
+cuDNN's; the activation is applied around it in PyTorch.  Without grad
+(screening, extraction) the call is the direct one.
 """
 
 from __future__ import annotations
@@ -96,31 +105,69 @@ def pad_input(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x.float(), pads) if any(pads) else x.float()
 
 
+def activate_input(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The input prologue in PyTorch: relu(scale x + shift), `torch.addcmul`
+    then `torch.relu_`.  x (B, H, W, Ci); scale (Ci,); shift (Ci,) or (B, Ci)."""
+    if shift.dim() == 2:
+        shift = shift[:, None, None, :]
+    return torch.relu_(torch.addcmul(shift, x, scale))
+
+
 def winograd_conv3x3_plain(x: torch.Tensor, W: torch.Tensor,
-                           bias: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain version: x (B, H, W, Ci) NHWC, W (3, 3, Ci, Co) HWIO."""
+                           bias: torch.Tensor | None = None, *,
+                           in_scale: torch.Tensor | None = None,
+                           in_shift: torch.Tensor | None = None,
+                           out_relu: bool = False) -> torch.Tensor:
+    """The plain version: x (B, H, W, Ci) NHWC, W (3, 3, Ci, Co) HWIO; the
+    activations as `winograd_conv3x3` takes them."""
+    if in_scale is not None:
+        x = activate_input(x, in_scale, in_shift)
     y = F.conv2d(x.permute(0, 3, 1, 2), W.permute(3, 2, 0, 1), bias, padding=1)
-    return y.permute(0, 2, 3, 1).contiguous()
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return torch.relu_(y) if out_relu else y
 
 
-def winograd_conv3x3(x: torch.Tensor, W: torch.Tensor,
-                     bias: torch.Tensor | None = None) -> torch.Tensor:
+def input_affine(scale: torch.Tensor, shift: torch.Tensor, ci_p: int) -> tuple:
+    """The kernel's prologue operands: scale (Ci_p,) and shift (Ci_p,) or
+    (B, Ci_p) in float32, the padded channels 0 in both (so they stay 0)."""
+    pad = (0, ci_p - scale.shape[0])
+    return F.pad(scale.float(), pad), F.pad(shift.float(), pad)
+
+
+def winograd_conv3x3(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor | None = None, *,
+                     in_scale: torch.Tensor | None = None, in_shift: torch.Tensor | None = None,
+                     out_relu: bool = False) -> torch.Tensor:
     """SAME 3x3 correlation + bias.  x (B, H, W, Ci) float32; W (3, 3, Ci,
-    Co) HWIO; bias (Co,) or None.  Returns (B, H, W, Co).
+    Co) HWIO; bias (Co,) or None.  Returns (B, H, W, Co).  Either an input
+    prologue, in_scale (Ci,) and in_shift (Ci,) or (B, Ci): the conv reads
+    relu(in_scale x + in_shift) (`activate_input`), and SAME padding pads
+    that with zeros; or `out_relu`, the ReLU of the output.
 
-    Under grad mode, when x, W or bias requires grad, the call goes through
-    `WinogradConv3x3Fn`, whose forward and data gradient come back here with
-    grad off; otherwise it is the direct call: the kernel on CUDA, the
-    plain version on the CPU."""
+    Under grad mode, when a tensor argument requires grad, the activation
+    runs in PyTorch around `WinogradConv3x3Fn`, whose forward and data
+    gradient come back here with grad off; otherwise it is the direct call:
+    the kernel on CUDA (the activation fused), the plain version on the
+    CPU."""
+    prologue = in_scale is not None
+    if prologue != (in_shift is not None) or (prologue and out_relu):
+        raise ValueError("winograd_conv3x3: in_scale and in_shift go together, and not with "
+                         "out_relu")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, W, bias)):
-        return WinogradConv3x3Fn.apply(x, W, bias)
+                                       for t in (x, W, bias, in_scale, in_shift)):
+        if prologue:
+            x = activate_input(x, in_scale, in_shift)
+        y = WinogradConv3x3Fn.apply(x, W, bias)
+        return torch.relu_(y) if out_relu else y
     if x.device.type == "cpu":
-        return winograd_conv3x3_plain(x, W, bias)
+        return winograd_conv3x3_plain(x, W, bias, in_scale=in_scale, in_shift=in_shift,
+                                      out_relu=out_relu)
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
 
     h, w = x.shape[1:3]
-    y = winograd_conv3x3_cuda(pad_input(x), *winograd_operands(W, bias))
+    xp = pad_input(x)
+    scale, shift = input_affine(in_scale, in_shift, xp.shape[-1]) if prologue else (None, None)
+    y = winograd_conv3x3_cuda(xp, *winograd_operands(W, bias), scale=scale, shift=shift,
+                              out_relu=out_relu, frame=(h, w))
     return y[:, :h, :w].contiguous() if (h % 2 or w % 2) else y
 
 

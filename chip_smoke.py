@@ -14,9 +14,15 @@ Phases (any failure exits non-zero before the last line is printed):
    the one PyTorch call that computes the same function where there is
    one, and the bound (the least time the card could take: bytes over
    3.35 TB/s or operations over their peak, H100 SXM published figures):
-   Winograd conv at all 13 U-Net layers, B = 16: max|y - ref| / max|ref|
-   < 1e-5, its row summed over Conv_1, Conv_7 and Conv_8, library call
-   cuDNN fp32; segment sum on the 16 frames' run table (524,288 x 6):
+   Winograd conv at all 13 U-Net layers, B = 16, with the output ReLU the
+   U-Net launches: max|y - ref| / max|ref| < 1e-5 and bit for bit the
+   plain instance's output after `torch.relu_`, its row summed over
+   Conv_1, Conv_7 and Conv_8, library call cuDNN fp32; at CPnet's 32 convs
+   (the committed Cellpose weights on 576 random 224^2 tiles, the
+   BatchNorm, style and ReLU as the input prologue the network launches),
+   each within 1e-5 with its device time, its bound and the plain
+   instance's device time on the input activated beforehand (the row's
+   `cpnet_*` keys); segment sum on the 16 frames' run table (524,288 x 6):
    equal, library call `index_add_`; the fused CLAHE kernel on 32 random
    cells at each bucket capacity, on the main path's own size buckets
    (StarDist stage A of the 16 frames; its row sums these) and on the
@@ -260,8 +266,10 @@ Phases (any failure exits non-zero before the last line is printed):
    just before and read after: the flow following, Winograd, the select,
    segment sum, CLAHE and CC must each launch, no batch may fall back to
    the exact twin, and the cells pass `_check_result`; cells/s and peak
-   memory are printed.  `--phases 0,1,17` runs it alone (exit 1: no
-   result line);
+   memory are printed.  The warm-up runs with every kernel call held
+   against its plain version (`_HeldAgainstPlain`; each of CPnet's 32
+   convs with its input prologue at 1e-5).  `--phases 0,1,17` runs it
+   alone (exit 1: no result line);
 18. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
@@ -389,6 +397,7 @@ DIST_LOCAL_SHARDS, DIST_TIMEOUT = 2, 600
 CELLPOSE_WEIGHTS = os.path.join(REPO, "benchmark", "data", "cellpose_synthetic.npz")
 CELLPOSE_KERNELS = ("follow_flows", "winograd_conv3x3", "kthvalue_radix", "segment_sum",
                     "clahe_cells", "cc_tile_labels")
+CELLPOSE_TILES = 576   # phase 2: CPnet's tiles a call, `CellposeConfig().tile_chunk`
 # phase 15: the train round trip of JAX's scripts/parity_train_onchip.py (6
 # training frames, 8 epochs) at 512^2 and 50 cells a frame, a few hundred
 # cells, so that its CPU half stays near two minutes: frames, side, cells, epochs
@@ -680,6 +689,65 @@ def _follow_flows_check(torch, labels, niter: int = 200) -> dict:
                 bound_by=b_by, library_ms=None, shape=[B, 2, h, w], moving=n_points)
 
 
+def _winograd_prologue_check(torch, dev) -> dict:
+    """Phase 2's Winograd at CPnet's 32 convs: the committed Cellpose
+    weights on CELLPOSE_TILES random 224^2 tiles, each conv's call (its
+    BatchNorm, style and ReLU as the kernel's input prologue) within 1e-5
+    of the plain version on its own inputs, its device time beside its
+    bound, and beside the plain instance's device time on the same input
+    activated beforehand (what the prologue costs the kernel).  Returns the
+    Winograd row's `cpnet_*` keys: the sums over the 32 convs."""
+    from cell_image_analysis_tpu_torch.io.artifacts import load_cellpose_weights
+    from cell_image_analysis_tpu_torch.models.cellpose import build_cpnet
+    from cell_image_analysis_tpu_torch.ops import winograd
+    from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
+
+    model = build_cpnet(load_cellpose_weights(CELLPOSE_WEIGHTS), dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tiles = torch.randn((CELLPOSE_TILES, 224, 224, 2), generator=gen, device=dev)
+    real, sums, err = winograd.winograd_conv3x3, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0), 0.0
+
+    def checked(x, W, bias=None, **act):
+        nonlocal err
+        if act.get("in_scale") is None:
+            raise AssertionError("[2] a CPnet conv was launched without its input prologue")
+        y = real(x, W, bias, **act)
+        ref = winograd.winograd_conv3x3_plain(x, W, bias, **act)
+        rel = float((y - ref).abs().max()) / float(ref.abs().max())
+        del ref
+        B, H, Wd, ci = x.shape
+        co = W.shape[-1]
+        if not rel < 1e-5:
+            raise AssertionError(f"[2] winograd {B}x{H}x{Wd}x{ci}->{co} +in: relative error "
+                                 f"{rel:.3e} >= 1e-5")
+        d_k = device_ms(lambda: real(x, W, bias, **act), ("winograd_kernel",), n=3)
+        xa = winograd.pad_input(winograd.activate_input(x, act["in_scale"], act["in_shift"]))
+        ops = winograd.winograd_operands(W, bias)
+        d_p = device_ms(lambda: winograd_conv3x3_cuda(xa, *ops), ("winograd_kernel",), n=3)
+        del xa
+        b_ms, b_by = winograd_bound(B, H, Wd, ci, co)
+        log(f"[2] winograd CPnet {B}x{H}x{Wd}x{ci}->{co} +in (shift "
+            f"{tuple(act['in_shift'].shape)}): rel {rel:.3e}; kernel device {d_k:.3f} ms, the "
+            f"plain instance on the activated input {d_p:.3f} ms; bound {b_ms:.3f} ms ({b_by}), "
+            f"{100 * b_ms / d_k:.1f}% of it")
+        err = max(err, rel)
+        for k, v in (("ms", d_k), ("plain_ms", d_p), ("bound_ms", b_ms)):
+            sums[k] += v
+        return y
+
+    winograd.winograd_conv3x3 = checked
+    try:
+        with torch.no_grad():
+            model(tiles)
+    finally:
+        winograd.winograd_conv3x3 = real
+    log(f"[2] winograd, CPnet's 32 convs on {CELLPOSE_TILES} tiles of 224^2 with the input "
+        f"prologue: kernel device {sums['ms']:.3f} ms, the plain instance on activated inputs "
+        f"{sums['plain_ms']:.3f} ms (+{100 * (sums['ms'] / sums['plain_ms'] - 1):.1f}%), bound "
+        f"{sums['bound_ms']:.3f} ms, max relative error {err:.3e}")
+    return {f"cpnet_{k}": v for k, v in sums.items()} | dict(cpnet_max_rel_err=err)
+
+
 def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
     from cell_image_analysis_tpu_torch.ops.cc import (
@@ -699,7 +767,8 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {}
 
-    # Winograd conv, the committed U-Net weights of all 13 layers at main-path shapes
+    # Winograd conv, the committed U-Net weights of all 13 layers at main-path
+    # shapes, with the output ReLU that the U-Net launches
     err_w, all_k, all_p = 0.0, 0.0, 0.0
     row = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     largest = (0.0, "operations")   # the row's bound_by: that of its largest layer bound
@@ -708,22 +777,27 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
         bias = torch.tensor(unet_vars["params"][name]["bias"], device=dev)
         x = torch.relu(torch.randn((B, H, W, ci), generator=gen, device=dev))
         xp, ops = pad_input(x), winograd_operands(Wt, bias)
-        y = winograd_conv3x3_cuda(xp, *ops)
-        ref = winograd_conv3x3_plain(x, Wt, bias)
+        y = winograd_conv3x3_cuda(xp, *ops, out_relu=True)
+        ref = winograd_conv3x3_plain(x, Wt, bias, out_relu=True)
+        if not torch.equal(y, torch.relu_(winograd_conv3x3_cuda(xp, *ops))):
+            raise AssertionError(f"winograd {name}: the output ReLU is not relu_ of the plain "
+                                 "instance bit for bit")
         torch.cuda.synchronize()
         abs_err = float((y - ref).abs().max())
         rel = abs_err / float(ref.abs().max())
-        t_k = time_ms(lambda: winograd_conv3x3_cuda(xp, *ops))
-        t_p = time_ms(lambda: winograd_conv3x3_plain(x, Wt, bias))
+        t_k = time_ms(lambda: winograd_conv3x3_cuda(xp, *ops, out_relu=True))
+        t_p = time_ms(lambda: winograd_conv3x3_plain(x, Wt, bias, out_relu=True))
         pad = (f"; the wrapper's channel pad {ci}->{xp.shape[-1]} {time_ms(lambda: pad_input(x)):.3f} ms"
                if xp.shape != x.shape else "")
-        log(f"[2] winograd {name} {B}x{H}x{W}x{ci}->{co}: max abs err {abs_err:.3e}, "
-            f"rel {rel:.3e}; kernel {t_k:.3f} ms, plain F.conv2d {t_p:.3f} ms{pad}")
+        log(f"[2] winograd {name} {B}x{H}x{W}x{ci}->{co} +out: max abs err {abs_err:.3e}, "
+            f"rel {rel:.3e}, relu_ of the plain instance bit for bit; kernel {t_k:.3f} ms, "
+            f"plain F.conv2d + relu_ {t_p:.3f} ms{pad}")
         if not rel < 1e-5:
             raise AssertionError(f"winograd {name}: relative error {rel:.3e} >= 1e-5")
         err_w, all_k, all_p = max(err_w, abs_err), all_k + t_k, all_p + t_p
         if name in WINO_ROW:
-            d_k = device_ms(lambda: winograd_conv3x3_cuda(xp, *ops), ("winograd_kernel",), n=5)
+            d_k = device_ms(lambda: winograd_conv3x3_cuda(xp, *ops, out_relu=True),
+                            ("winograd_kernel",), n=5)
             b_ms, b_by = winograd_bound(B, H, W, ci, co)
             largest = max(largest, (b_ms, b_by))
             # the plain version is one cuDNN fp32 call, the library's
@@ -738,7 +812,8 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     log(f"[2] winograd, all 13 layers: kernel {all_k:.3f} ms, plain {all_p:.3f} ms; "
         f"{' + '.join(WINO_ROW)}: kernel device {row['ms']:.3f} ms, bound "
         f"{row['bound_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms")
-    res["winograd_conv3x3"] = dict(max_abs_err=err_w, bound_by=largest[1], **row)
+    res["winograd_conv3x3"] = dict(max_abs_err=err_w, bound_by=largest[1], **row,
+                                   **_winograd_prologue_check(torch, dev))
 
     # segment sum over the 16 frames' run table, as stage A of the main path builds it
     res["segment_sum"] = dict(max_abs_err=0.0, **_segsum_check(
@@ -1163,8 +1238,9 @@ def phase_twin(torch, dev, seg_cfg, stage_a, segs, greens, backend, params_model
 def phase_cellpose(torch, dev, stage_a, segs, greens, params_model) -> dict:
     """Phase 17 (see the module docstring): the Cellpose backend at
     `CellposeConfig()` through `score_frames_fused_start` / `_wait` on the
-    16 frames, a warm-up, then a run with the counts set to 0 just before;
-    returns its launches, cells, wall seconds and peak memory."""
+    16 frames, a warm-up held against the plain versions, then a run with
+    the counts set to 0 just before; returns its launches, cells, wall
+    seconds and peak memory."""
     from cell_image_analysis_tpu_torch.io.artifacts import load_cellpose_weights
     from cell_image_analysis_tpu_torch.models.segmentation import CellposeBackend
     from cell_image_analysis_tpu_torch.pipeline.scoring import (
@@ -1181,9 +1257,8 @@ def phase_cellpose(torch, dev, stage_a, segs, greens, params_model) -> dict:
             model, params, segs, greens, backend, chunk=32, caps=(64, 96),
             fallback_segment_fn=twin, **stage_a))
 
+    _counted(torch, run, CELLPOSE_KERNELS, "[17] Cellpose, first run (warm-up), held")
     torch.cuda.reset_peak_memory_stats(dev)
-    _, t_first = _timed(torch, run)
-    log(f"[17] Cellpose, first run (warm-up) {t_first:.2f} s")
     (scores, stats), launches, seconds = _counted(torch, run, CELLPOSE_KERNELS,
                                                   "[17] Cellpose main path", held=False)
     n_frames = segs.shape[0]
@@ -1320,22 +1395,26 @@ class _HeldAgainstPlain:
         self._note("cc_tile_labels", (tuple(mask.shape), connectivity))
         return got, count
 
-    def _winograd(self, x, W, bias=None):
+    def _winograd(self, x, W, bias=None, **act):
         from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3_plain
 
-        if self.torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                                for t in (x, W, bias)):
+        if self.torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, W, bias, act.get("in_scale"), act.get("in_shift"))):
             # the autograd route: its forward and data gradient come back
             # here with grad off, and are held then
-            return self._real["winograd_conv3x3"](x, W, bias)
-        y = self._real["winograd_conv3x3"](x, W, bias)
-        ref = winograd_conv3x3_plain(x, W, bias)
+            return self._real["winograd_conv3x3"](x, W, bias, **act)
+        y = self._real["winograd_conv3x3"](x, W, bias, **act)
+        ref = winograd_conv3x3_plain(x, W, bias, **act)
         rel = float((y - ref).abs().max()) / float(ref.abs().max())
+        # the activation fused beside the conv: the input prologue or the output ReLU
+        fused = ("+in" if act.get("in_scale") is not None else
+                 "+out" if act.get("out_relu") else "")
         if not rel < 1e-5:
-            raise AssertionError(f"winograd {tuple(x.shape)} -> {W.shape[-1]}: relative error "
-                                 f"{rel:.3e} >= 1e-5 on a path's own activations")
+            raise AssertionError(f"winograd {tuple(x.shape)} -> {W.shape[-1]} {fused}: relative "
+                                 f"error {rel:.3e} >= 1e-5 on a path's own activations")
         self.max_rel_err = max(self.max_rel_err, rel)
-        self._note("winograd_conv3x3", (tuple(x.shape), W.shape[-1]))
+        self._note("winograd_conv3x3", (tuple(x.shape), W.shape[-1], fused))
         return y
 
     def report(self, tag: str, needed: tuple) -> None:

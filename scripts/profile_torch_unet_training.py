@@ -57,8 +57,8 @@ def main() -> int:
 
     real = winograd.winograd_conv3x3
 
-    def plain_route(x, W, bias=None):
-        return winograd.winograd_conv3x3_plain(x, W, bias)
+    def plain_route(x, W, bias=None, **act):
+        return winograd.winograd_conv3x3_plain(x, W, bias, **act)
 
     def timed_steps(route) -> float:
         winograd.winograd_conv3x3 = route

@@ -150,6 +150,42 @@ def test_cpnet_matches_the_reference(model, state):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def test_the_fused_cpnet_matches_the_unfused_forward(model, monkeypatch):
+    """Eval without grad: every 3x3 conv takes its BatchNorm, style term
+    and ReLU as the conv's input prologue (32 of 32); the output equals,
+    to 1e-6, the forward with each `_BC` as separate passes: x + style,
+    the BatchNorm, the ReLU, then the conv."""
+    import torch.nn.functional as F
+
+    from cell_image_analysis_tpu_torch.ops import winograd
+
+    calls, real = [], winograd.winograd_conv3x3
+
+    def spy(x, W, bias=None, **kw):
+        calls.append(kw.get("in_scale") is not None)
+        return real(x, W, bias, **kw)
+
+    def unfused(self, x, style=None):
+        if style is not None:
+            x = x + style[:, None, None, :]
+        x = (x - self.bn_mean) / torch.sqrt(self.bn_var + cp.BN_EPS) * self.bn_weight
+        x = x + self.bn_bias
+        x = torch.relu(x) if self.relu else x
+        k = self.weight.shape[-1]
+        return F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                        padding=k // 2).permute(0, 2, 3, 1)
+
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=(3, 64, 64, 2)).astype(np.float32))
+    monkeypatch.setattr(winograd, "winograd_conv3x3", spy)
+    with torch.no_grad():
+        fused = model(x)
+        assert calls == [True] * 32
+        monkeypatch.setattr(cp._BC, "forward", unfused)
+        want = model(x)
+    assert len(calls) == 32
+    assert float((fused - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
 def test_the_layout_is_cyto3s():
     model = cp.CPnet()
     convs = [m for m in model.modules() if isinstance(m, cp._BC)]

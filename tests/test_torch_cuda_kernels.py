@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import padded_crops, torch_threads
+from torch_port_helpers import WINO_ACT_CASES, padded_crops, torch_threads, wino_act_inputs
 
 pytestmark = pytest.mark.cuda
 torch_threads()
@@ -83,6 +83,53 @@ def test_winograd_autograd_launches_the_kernel_for_dx(dev, b, h, w, ci, co, x_gr
         assert float((a - r).abs().max()) / float(r.abs().max()) < 1e-5
 
 
+# the fused activations at the kernel's own shapes besides WINO_ACT_CASES:
+# CPnet's first conv (Ci 2) and a decoder conv with a per-tile shift, and a
+# StarDist conv with the output ReLU, over several blocks
+WINO_ACT_CHIP_CASES = WINO_ACT_CASES + [(3, 64, 48, 2, 32, "channel"),
+                                        (4, 56, 56, 64, 64, "image"),
+                                        (2, 40, 72, 32, 64, "out_relu")]
+
+
+@pytest.mark.parametrize("case", WINO_ACT_CHIP_CASES, ids=str)
+def test_winograd_fused_kernel_matches_the_fused_plain_version(dev, case):
+    """The input prologue or the output ReLU in the kernel against the
+    plain version's PyTorch passes, within 1e-5; one launch, counted as
+    fused.  The shift is positive, so a halo, a ragged edge or a padded
+    row activated as relu(shift) would show."""
+    from cell_image_analysis_tpu_torch.ops.cuda import winograd as launcher
+    from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3, winograd_conv3x3_plain
+    from cell_image_analysis_tpu_torch.utils.profiler import counters
+
+    x, W, bias, kw = wino_act_inputs(case, dev)
+    before, seen = launcher.LAUNCHES, counters()
+    y = winograd_conv3x3(x, W, bias, **kw)
+    assert launcher.LAUNCHES == before + 1
+    assert counters(seen) == {"winograd.launches": 1, "winograd.fused": 1}
+    ref = winograd_conv3x3_plain(x, W, bias, **kw)
+    assert y.shape == ref.shape
+    assert float((y - ref).abs().max()) / float(ref.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", WINO_CASES)
+def test_winograd_out_relu_is_relu_of_the_plain_instance(dev, b, h, w, ci, co):
+    """The output ReLU at the store gives, bit for bit, the conv without it
+    followed by `torch.relu_` (the StarDist U-Net's outputs do not move)."""
+    from cell_image_analysis_tpu_torch.ops.winograd import winograd_conv3x3
+    from cell_image_analysis_tpu_torch.utils.profiler import counters
+
+    g = torch.Generator(device=dev).manual_seed(ci * co + 1)
+    x = torch.randn((b, h, w, ci), generator=g, device=dev)
+    W = torch.randn((3, 3, ci, co), generator=g, device=dev) / (3 * ci ** 0.5)
+    bias = torch.randn((co,), generator=g, device=dev)
+    seen = counters()
+    y = winograd_conv3x3(x, W, bias, out_relu=True)
+    assert counters(seen) == {"winograd.launches": 1, "winograd.fused": 1}
+    ref = torch.relu_(winograd_conv3x3(x, W, bias))
+    assert bool((ref == 0).any()) and bool((ref > 0).any())
+    assert torch.equal(y, ref)
+
+
 def test_winograd_launcher_rejects_what_the_kernel_does_not_take(dev):
     from cell_image_analysis_tpu_torch.ops.cuda.winograd import winograd_conv3x3_cuda
     from cell_image_analysis_tpu_torch.ops.winograd import winograd_operands
@@ -97,6 +144,21 @@ def test_winograd_launcher_rejects_what_the_kernel_does_not_take(dev):
         winograd_conv3x3_cuda(x, ops[0][:1], ops[1], ops[2])        # one Co block of two
     with pytest.raises(ValueError):
         winograd_conv3x3_cuda(x.cpu(), *ops)
+    one, ch = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    winograd_conv3x3_cuda(x, *ops, scale=one, shift=ch, frame=(7, 8))
+    for kw in (dict(scale=one), dict(shift=ch), dict(scale=one, shift=ch, out_relu=True),
+               dict(scale=one, shift=ch[:5]),
+               dict(scale=one[:5], shift=ch[:5]), dict(scale=one, shift=torch.zeros(2, 8,
+                                                                                  device=dev)),
+               dict(scale=one, shift=ch, frame=(9, 8)), dict(scale=one.double(), shift=ch)):
+        with pytest.raises((ValueError, TypeError)):
+            winograd_conv3x3_cuda(x, *ops, **kw)
+    # the prologue's scale and shift must fit beside the ring in shared memory
+    wide = winograd_operands(torch.randn((3, 3, 6208, 32), device=dev))
+    xw, sw = torch.randn((1, 2, 2, 6208), device=dev), torch.ones(6208, device=dev)
+    winograd_conv3x3_cuda(xw, *wide)
+    with pytest.raises(ValueError, match="at most"):
+        winograd_conv3x3_cuda(xw, *wide, scale=sw, shift=sw)
 
 
 def test_segment_sum_kernel_matches_plain(dev):

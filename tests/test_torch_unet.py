@@ -48,3 +48,29 @@ def test_dist_head_rows_matches_jax():
     with torch.no_grad():
         got = model_t.dist_head_rows(torch.from_numpy(rows)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_the_forward_without_grad_is_the_relu_after_the_conv(monkeypatch):
+    """Each of the 13 3x3 convs applies its ReLU as the conv's output
+    epilogue (`out_relu`); the outputs are bit for bit those of the forward
+    that runs `torch.relu_` after each conv."""
+    from cell_image_analysis_tpu_torch.models import unet
+    from cell_image_analysis_tpu_torch.ops import winograd
+
+    _, _, model_t = _models()
+    calls, real = [], winograd.winograd_conv3x3
+
+    def spy(x, W, bias=None, **kw):
+        calls.append(kw.get("out_relu", False))
+        return real(x, W, bias, **kw)
+
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(2, 64, 64, 1)).astype(np.float32))
+    monkeypatch.setattr(winograd, "winograd_conv3x3", spy)
+    with torch.no_grad():
+        fused = model_t(x)
+        assert calls == [True] * 13
+        monkeypatch.setattr(unet._Conv, "relu", lambda self, h: torch.relu_(self(h)))
+        unfused = model_t(x)
+    assert calls == [True] * 13 + [False] * 13
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)

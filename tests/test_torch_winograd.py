@@ -2,7 +2,10 @@
 Winograd kernel (Pallas, interpret mode) and the JAX direct conv.  The
 plain version is a float32 F.conv2d; the JAX kernel's 3-pass bf16
 products sit at ~2^-17 relative, hence the 5e-5 bound of
-tests/test_winograd.py."""
+tests/test_winograd.py.  The fused activations (input prologue, output
+ReLU): the plain version and the kernel's emulation against the unfused
+composition, at a shift that is positive, so that padding read as
+relu(shift) would show."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import torch_threads
+from torch_port_helpers import (
+    WINO_ACT_CASES,
+    torch_threads,
+    wino_act_inputs,
+    wino_act_unfused,
+    winograd_3xtf32,
+)
 
 from cell_image_analysis_tpu_torch.ops.winograd import (
     winograd_conv3x3,
@@ -79,3 +88,59 @@ def test_cpu_wrapper_is_the_plain_version_at_even_and_odd_sides():
     x7 = torch.from_numpy(_rand((1, 7, 9, 3), 9))
     torch.testing.assert_close(winograd_conv3x3(x7, W), winograd_conv3x3_plain(x7, W),
                                rtol=0, atol=0)
+
+
+# ---- the fused activations ------------------------------------------------
+
+
+@pytest.mark.parametrize("case", WINO_ACT_CASES, ids=str)
+def test_fused_plain_version_is_the_unfused_composition(case):
+    """The op with an input prologue or an output ReLU (on the CPU: the
+    plain version) against the activation, the conv and the ReLU as
+    separate passes."""
+    x, W, bias, kw = wino_act_inputs(case)
+    got = winograd_conv3x3(x, W, bias, **kw)
+    ref = wino_act_unfused(x, W, bias, **kw)
+    assert got.shape == ref.shape == (*x.shape[:3], W.shape[-1])
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("case", WINO_ACT_CASES, ids=str)
+def test_kernel_emulation_of_the_prologue_pads_the_activated_input(case):
+    """The CUDA route's design, emulated on the CPU: the even padding and
+    Ci's zero channels, the prologue on in-frame pixels only, 3xTF32
+    products.  The shift is positive, so a border or a padded row read as
+    relu(shift) instead of 0 would miss the composition."""
+    x, W, bias, kw = wino_act_inputs(case)
+    got = winograd_3xtf32(x, W, bias, **kw)
+    ref = wino_act_unfused(x, W, bias, **kw)
+    assert float((got - ref).abs().max()) < 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("kw", [dict(in_scale=True), dict(in_shift=True),
+                                dict(in_scale=True, in_shift=True, out_relu=True)], ids=str)
+def test_the_op_refuses_a_half_prologue_or_both_activations(kw):
+    """The prologue takes a scale and a shift, and a call takes it or the
+    output ReLU: the kernel has no instance with both."""
+    x, W, bias, full = wino_act_inputs((2, 6, 8, 3, 5, "image"))
+    kw = {k: full[k] if k.startswith("in_") else v for k, v in kw.items()}
+    with pytest.raises(ValueError, match="go together"):
+        winograd_conv3x3(x, W, bias, **kw)
+
+
+def test_activations_under_grad_run_around_the_fn():
+    """Under grad the prologue is PyTorch ops around `WinogradConv3x3Fn`,
+    and its gradients reach the scale and shift."""
+    from cell_image_analysis_tpu_torch.ops.winograd import WinogradConv3x3Fn
+
+    x, W, bias, kw = wino_act_inputs((2, 8, 10, 4, 6, "image"))
+    scale = kw["in_scale"].clone().requires_grad_()
+    shift = kw["in_shift"].clone().requires_grad_()
+    y = winograd_conv3x3(x, W, bias, in_scale=scale, in_shift=shift)
+    assert isinstance(y.grad_fn, WinogradConv3x3Fn._backward_cls)
+    y.sum().backward()
+    ref_scale = kw["in_scale"].clone().requires_grad_()
+    ref_shift = kw["in_shift"].clone().requires_grad_()
+    wino_act_unfused(x, W, bias, ref_scale, ref_shift).sum().backward()
+    torch.testing.assert_close(scale.grad, ref_scale.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(shift.grad, ref_shift.grad, rtol=1e-5, atol=1e-5)

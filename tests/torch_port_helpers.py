@@ -122,13 +122,71 @@ def winograd_kernel_emulation(xp: torch.Tensor, U_hi: torch.Tensor, U_lo: torch.
     return y.permute(0, 1, 4, 2, 5, 3).reshape(B, H, W, co)
 
 
-def winograd_3xtf32(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def winograd_3xtf32(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor, *, in_scale=None,
+                    in_shift=None, out_relu: bool = False) -> torch.Tensor:
     """What the CUDA route of `ops.winograd.winograd_conv3x3` computes, on
-    the CPU: the wrapper's padding and operands, the kernel's arithmetic."""
-    from cell_image_analysis_tpu_torch.ops.winograd import pad_input, winograd_operands
+    the CPU: the wrapper's padding and operands, the kernel's arithmetic;
+    with an input prologue, relu(scale x + shift) in one rounding (the
+    kernel's fmaf) on the pixels of the frame before the even padding only,
+    the padded row or column and the channels left 0; with `out_relu`,
+    relu at the end."""
+    from cell_image_analysis_tpu_torch.ops.winograd import (
+        input_affine,
+        pad_input,
+        winograd_operands,
+    )
 
     h, w = x.shape[1:3]
-    return winograd_kernel_emulation(pad_input(x), *winograd_operands(W, bias))[:, :h, :w]
+    xp = pad_input(x)
+    if in_scale is not None:
+        scale, shift = input_affine(in_scale, in_shift, xp.shape[-1])
+        shift = shift[:, None, None, :] if shift.dim() == 2 else shift
+        act = torch.relu((scale.double() * xp.double() + shift.double()).float())
+        frame = torch.zeros(xp.shape[1:3], dtype=torch.bool)
+        frame[:h, :w] = True
+        xp = torch.where(frame[None, :, :, None], act, torch.zeros(()))
+    y = winograd_kernel_emulation(xp, *winograd_operands(W, bias))[:, :h, :w]
+    return torch.relu(y) if out_relu else y
+
+
+# the fused activations' cases (b, h, w, ci, co, act): the input prologue
+# with its shift per channel ("channel") or per image ("image"), or the
+# output ReLU ("out_relu"); Ci = 2 and 5 (padded to 8), Co not a multiple
+# of 32, odd sides
+WINO_ACT_CASES = [
+    (2, 10, 12, 2, 7, "channel"),
+    (2, 9, 11, 16, 40, "image"),
+    (1, 7, 8, 5, 33, "out_relu"),
+    (3, 8, 9, 8, 32, "channel"),
+    (2, 18, 22, 64, 64, "image"),
+]
+
+
+def wino_act_inputs(case, device="cpu", seed: int = 0) -> tuple:
+    """(x, W, bias, activation keywords) of a `WINO_ACT_CASES` entry: the
+    shift positive everywhere, so that padding read as relu(shift) instead
+    of 0 shows, the scale of either sign."""
+    b, h, w, ci, co, act = case
+    g = torch.Generator().manual_seed(seed + 1000 * ci + co)
+    x = torch.randn((b, h, w, ci), generator=g)
+    W = torch.randn((3, 3, ci, co), generator=g) / (3 * ci ** 0.5)
+    bias = torch.randn((co,), generator=g) * 0.1
+    scale = torch.rand((ci,), generator=g) * 3 - 1
+    shift = torch.rand((b, ci) if act == "image" else (ci,), generator=g) + 0.5
+    kw = (dict(out_relu=True) if act == "out_relu" else
+          dict(in_scale=scale.to(device), in_shift=shift.to(device)))
+    return x.to(device), W.to(device), bias.to(device), kw
+
+
+def wino_act_unfused(x, W, bias, in_scale=None, in_shift=None, out_relu=False) -> torch.Tensor:
+    """The unfused composition: the activation as its own pass, F.conv2d's
+    SAME conv (zero padding of the activated input), the ReLU after."""
+    if in_scale is not None:
+        shift = in_shift[:, None, None, :] if in_shift.dim() == 2 else in_shift
+        x = torch.relu(x * in_scale + shift)
+    y = F.conv2d(x.permute(0, 3, 1, 2), W.permute(3, 2, 0, 1), bias, padding=1)
+    y = y.permute(0, 2, 3, 1)
+    return torch.relu(y) if out_relu else y
 
 
 def _band_of(rank: int, bands: int, h: int, kh: int, ns_h: int):
