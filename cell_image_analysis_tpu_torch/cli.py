@@ -3,7 +3,7 @@
   python -m cell_image_analysis_tpu_torch.cli train INPUT_FOLDER --output OUT
   python -m cell_image_analysis_tpu_torch.cli screen --models DIR \
          --sample strain1=/path/a --sample strain2=/path/b --output OUT \
-         [--backend cellpose --cellpose-weights PATH]
+         [--backend cellpose|cellpose_sam --cellpose-weights PATH]
   python -m cell_image_analysis_tpu_torch.cli bench [--frames 8 --size 1024 \
          --cells-per-frame 80 --backend stardist]
 
@@ -92,14 +92,15 @@ def add_screen_arguments(p: argparse.ArgumentParser):
                    help="screen under torch.profiler: a Chrome trace with the port's spans, "
                         "and their summary as JSON, written into DIR")
     _add_common(p)
-    # screening also runs the port's Cellpose backend, which JAX's cli has not
+    # screening also runs the port's Cellpose backends, which JAX's cli has not
     backend = next(a for a in p._actions if a.dest == "backend")
-    backend.choices = [*backend.choices, "cellpose"]
+    backend.choices = [*backend.choices, "cellpose", "cellpose_sam"]
     backend.help = ("segmentation backend (stardist uses the bundled weights unless "
-                    "--unet-weights; cellpose needs --cellpose-weights)")
+                    "--unet-weights; cellpose and cellpose_sam need --cellpose-weights)")
     p.add_argument("--cellpose-weights", default=None, metavar="PATH",
-                   help="Cellpose CPnet weights (.npz of Cellpose's state-dict names, "
-                        "io.artifacts.save_cellpose_weights) for --backend cellpose")
+                   help="Cellpose weights (.npz of Cellpose's state-dict names, "
+                        "io.artifacts.save_cellpose_weights): CPnet's for --backend cellpose, "
+                        "Cellpose-SAM's for --backend cellpose_sam")
 
 
 def load_unet(args):
@@ -113,9 +114,9 @@ def load_unet(args):
         load_unet_variables,
     )
 
-    if args.backend == "cellpose":
+    if args.backend in ("cellpose", "cellpose_sam"):
         if not getattr(args, "cellpose_weights", None):
-            raise SystemExit("--backend cellpose needs --cellpose-weights PATH")
+            raise SystemExit(f"--backend {args.backend} needs --cellpose-weights PATH")
         return load_cellpose_weights(args.cellpose_weights)
     weights_path = args.unet_weights
     if not weights_path and args.backend == "stardist":

@@ -79,27 +79,30 @@ class SegConfig:
     raster_m_cap: int = 8            # tiled mode: polygons a tile may hold
     norm_pmin: float = 3.0           # percentile normalization of the seg channel
     norm_pmax: float = 99.8
-    backend: str = "stardist"        # "stardist" | "threshold" | "cellpose"
+    backend: str = "stardist"        # "stardist" | "threshold" | "cellpose" ("cellpose_sam")
     threshold_percentile: float = 90.0
 
 
 @dataclass(frozen=True)
 class CellposeConfig:
-    """Cellpose 3's `cyto3` segmentation (MouseLand/cellpose `CPnet` and
-    `dynamics.compute_masks` at their defaults), the port's third backend
-    (`SegConfig.backend == "cellpose"`); the JAX package has none.  The
-    channels are [0, 0] (the frame, then zeros) and the rescale is 1 (a
-    diameter equal to the model's `diam_mean`, 30); the network's widths
-    are those of its weights (`models.cellpose.nbase_of`)."""
+    """Cellpose's segmentation (MouseLand/cellpose: Cellpose 3's `cyto3`
+    CPnet or Cellpose 4's `cpsam` ViT, and `dynamics.compute_masks` at
+    their defaults), the port's third backend (`SegConfig.backend ==
+    "cellpose"`); the JAX package has none.  The channels are the frame,
+    then zeros (CPnet's 2, the ViT's 3), and the rescale is 1 (no diameter
+    rescale); the network and its widths are those of its weights
+    (`models.cellpose.nbase_of`, `models.vit_sam.widths_of`)."""
 
-    tile: int = 224                  # bsize of run_net's tiles
+    tile: int | None = None          # bsize of run_net's tiles; None: the network's own
+                                     # (CPnet's 224, the ViT's 256)
     tile_overlap: float = 0.1
     niter: int = 200                 # Euler steps of the flow following
     cellprob_threshold: float = 0.0
     flow_threshold: float = 0.4      # flow-error QC; 0 turns it off
     min_size: int = 15               # fill_holes_and_remove_small_masks
     max_size_fraction: float = 0.4   # get_masks drops masks above it
-    tile_chunk: int = 576            # tiles a CPnet call: a batch of 16 1024^2 frames
+    tile_chunk: int = 576            # tiles a network call: CPnet's on a batch of 16
+                                     # 1024^2 frames (the ViT's cell runs 100)
     norm_pmin: float = 1.0           # normalize99
     norm_pmax: float = 99.0
 

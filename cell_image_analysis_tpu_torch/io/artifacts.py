@@ -28,8 +28,10 @@
   port's `nn.Module` state dicts (HWIO -> OIHW); `unet_params_to_jax` and
   `cae_state_to_jax` are their inverses.
 - `load_cellpose_weights` / `save_cellpose_weights` read and write Cellpose
-  `CPnet` weights as a NumPy `.npz` of Cellpose's state-dict names
-  (`models.cellpose.cellpose_key_map`) with a JSON `meta` entry; no pickle.
+  `CPnet` or Cellpose-SAM weights as a NumPy `.npz` of Cellpose's
+  state-dict names (`models.cellpose.cellpose_key_map`; Cellpose-SAM's
+  large matrices as seeded bases plus low-rank factors, `models.vit_sam`)
+  with a JSON `meta` entry; no pickle.
 - `load_scoring_params` reads `assets/scoring_synthetic.npz`
   (scripts/make_torch_port_assets.py) into a `ScoringParams` of tensors,
   on the card unless the caller passes `device="cpu"`.
@@ -75,13 +77,29 @@ def load_unet_variables(path: str | None = None) -> dict:
                        for name, layer in payload["params"].items()}}
 
 
+LOW_RANK_SEED = "lowrank.base_seed"
+
+
 def load_cellpose_weights(path: str) -> dict:
     """The Cellpose-named arrays of a `save_cellpose_weights` file as
-    float32 (`meta` left out); ValueError where it holds no CPnet."""
+    float32 (`meta` left out): CPnet's, or Cellpose-SAM's, whose large
+    matrices a file may hold as factors `<name>.lowrank_a` / `.lowrank_b`
+    beside `lowrank.base_seed`, merged here into dense float32 matrices
+    (`models.vit_sam.base_matrix` + A @ B, on the CPU); ValueError where it
+    holds neither network."""
+    from cell_image_analysis_tpu_torch.models import vit_sam
+
     with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k].astype(np.float32) for k in z.files if k != "meta"}
-    if "downsample.down.res_down_0.proj.1.weight" not in arrays:
-        raise ValueError(f"{path}: not a Cellpose CPnet weight file")
+        arrays = {k: z[k].astype(np.float32) for k in z.files
+                  if k not in ("meta", LOW_RANK_SEED) and not k.endswith(".lowrank_b")}
+        for key in [k for k in arrays if k.endswith(".lowrank_a")]:
+            name = key[:-len(".lowrank_a")]
+            a, b = arrays.pop(key), z[f"{name}.lowrank_b"].astype(np.float32)
+            base = vit_sam.base_matrix(name, (a.shape[0], b.shape[1]), int(z[LOW_RANK_SEED]))
+            arrays[name] = vit_sam.merge_low_rank(base, a, b).numpy()
+    if not (vit_sam.is_vit_state(arrays)
+            or "downsample.down.res_down_0.proj.1.weight" in arrays):
+        raise ValueError(f"{path}: not a Cellpose CPnet or Cellpose-SAM weight file")
     return arrays
 
 

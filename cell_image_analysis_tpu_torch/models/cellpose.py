@@ -149,13 +149,18 @@ class _ResUp(nn.Module):
 
 class CPnet(nn.Module):
     """forward(x (N, H, W, nbase[0]), H and W multiples of 8) ->
-    (N, H, W, 3): (dy, dx, cellprob)."""
+    (N, H, W, 3): (dy, dx, cellprob).  `in_channels` is nbase[0]; `tile`
+    is Cellpose 3's bsize, the tile `run_tiled` cuts by default (the
+    network takes any multiple of 8)."""
+
+    tile = 224
 
     def __init__(self, nbase=(2, 32, 64, 128, 256), nout: int = 3):
         super().__init__()
         nbase = list(nbase)
         up = nbase[1:] + [nbase[-1]]
         self.nbase = tuple(nbase)
+        self.in_channels = nbase[0]
         self.down = nn.ModuleList([_ResDown(nbase[n], nbase[n + 1])
                                    for n in range(len(nbase) - 1)])
         self.up = nn.ModuleList([_ResUp(up[n + 1], up[n], up[-1]) for n in range(len(up) - 1)])
@@ -337,21 +342,24 @@ def blend_weights(h: int, w: int, tile: int, overlap: float, device: torch.devic
 
 
 @torch.inference_mode()
-def run_tiled(model: CPnet, frames: torch.Tensor, tile: int = 224, overlap: float = 0.1,
+def run_tiled(model, frames: torch.Tensor, tile: int | None = None, overlap: float = 0.1,
               tile_chunk: int = 64, pmin: float = 1.0, pmax: float = 99.0) -> torch.Tensor:
     """(B, H, W) raw frames -> (B, H, W, 3) float32 (dy, dx, cellprob):
-    normalize99 (channel 0; channel 1 zeros), the padding, the tiles of all
-    frames through `model` `tile_chunk` at a time, the tapered blend
-    (`average_tiles`, in float64 on the device) and the crop back.  Spans
-    `cellpose.normalize`, `cellpose.tiles` (cut, net, blend) and
-    `cellpose.net`; counts `cellpose.tiles`."""
+    normalize99 into channel 0 of the network's `in_channels` (the others
+    zeros: CPnet's 2, Cellpose-SAM's 3), the padding, the tiles (`tile`,
+    by default the network's own) of all frames through `model`
+    `tile_chunk` at a time, the tapered blend (`average_tiles`, in float64
+    on the device) and the crop back.  Spans `cellpose.normalize`,
+    `cellpose.tiles` (cut, net, blend) and `cellpose.net`; counts
+    `cellpose.tiles`."""
+    tile = model.tile if tile is None else tile
     B, h, w = frames.shape
     dev = frames.device
     with span("cellpose.normalize"):
         x = normalize99(frames, pmin, pmax)
     with span("cellpose.tiles"):
         (py, px), ys, xs, (th, tw) = tiles_of(h, w, tile, overlap)
-        nchan = model.nbase[0]
+        nchan = model.in_channels
         img = torch.nn.functional.pad(x, (px[0], px[1], py[0], py[1]))
         Ly, Lx = img.shape[1:]
         # (B, ny, nx, th, tw): tile (j, i) of a frame is rows ys[j], cols xs[i]

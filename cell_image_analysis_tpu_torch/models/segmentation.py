@@ -16,10 +16,11 @@ Counterpart of `cell_image_analysis_tpu/models/segmentation.py`:
   cap, the NMS pair budget and the candidate cap.  Its `exact_twin()` is
   the backend JAX's callers re-run on overflow: scatter rasterizer, the
   K^2 NMS pair set and the pixel regionprops;
-- `CellposeBackend`: Cellpose 3's `cyto3` network (`models.cellpose`)
-  over tiles, the flow following (`ops.flows`), the masks, the flow-error
-  QC and the clean-up (`ops.cellpose_masks`), returning label maps per
-  frame batch; it has no capacity.  Its `exact_twin()`, which a stage-A
+- `CellposeBackend`: Cellpose 3's `cyto3` network (`models.cellpose`) or
+  Cellpose-SAM's ViT (`models.vit_sam`), chosen from the weights, over
+  tiles, the flow following (`ops.flows`), the masks, the flow-error QC
+  and the clean-up (`ops.cellpose_masks`), returning label maps per frame
+  batch; it has no capacity.  Its `exact_twin()`, which a stage-A
   overflow re-runs, is the same network on the pixel regionprops;
 - `segment_frame`: the dispatch on `SegConfig.backend`;
 - `select_backend`: the screener's and the trainer's choice of a
@@ -45,7 +46,8 @@ from cell_image_analysis_tpu_torch.ops.extract import OVERFLOW_REASONS
 from cell_image_analysis_tpu_torch.ops.percentile import kth_smallest, percentile_ranks
 from cell_image_analysis_tpu_torch.utils.profiler import count, span
 
-BACKENDS = ("stardist", "threshold", "cellpose")
+# `cellpose_sam` is the `cellpose` backend under Cellpose 4's name: the weights pick the network
+BACKENDS = ("stardist", "threshold", "cellpose", "cellpose_sam")
 
 
 def _cross(mask: torch.Tensor, combine) -> torch.Tensor:
@@ -204,9 +206,12 @@ class StarDistBackend:
 
 class CellposeBackend:
     """Label-map segment_fn for `pipeline.scoring.score_frames_fused`:
-    Cellpose 3 (`CellposeConfig`) with the network built from `arrays` (a
-    dict of Cellpose-named weights, `models.cellpose.build_cpnet`) on
-    `device`, by default the card; a `model` passed in stays where it is.
+    Cellpose (`CellposeConfig`) with the network built from `arrays` (a
+    dict of Cellpose-named weights) on `device`, by default the card: a
+    Cellpose-SAM state (`models.vit_sam.is_vit_state`) builds the ViT
+    (`build_vit_sam`), any other CPnet (`models.cellpose.build_cpnet`); a
+    `model` passed in stays where it is.  The tiles are `cfg.tile`, by
+    default the network's own.
 
     It has no capacity of its own: the seed table is sized to the batch's
     most seeds.  Stage A goes through the run-length label regionprops
@@ -220,12 +225,15 @@ class CellposeBackend:
 
     def __init__(self, arrays: dict | None, cfg: CellposeConfig = CellposeConfig(), device=None,
                  runs_props: bool = True, model=None):
+        from cell_image_analysis_tpu_torch.models import vit_sam
         from cell_image_analysis_tpu_torch.models.cellpose import build_cpnet
 
         self.cfg = cfg
         self.runs_props = runs_props
-        self.model = model if model is not None else build_cpnet(arrays,
-                                                                 resolve_device(device))
+        if model is None:
+            build = vit_sam.build_vit_sam if vit_sam.is_vit_state(arrays) else build_cpnet
+            model = build(arrays, resolve_device(device))
+        self.model = model
 
     @property
     def device(self) -> torch.device:
@@ -278,14 +286,14 @@ def segment_frame(seg_channels: torch.Tensor, cfg: SegConfig = SegConfig(),
     """Dispatch on `cfg.backend`: the threshold backend's label maps,
     StarDist's with the U-Net `model` (JAX takes its variables instead;
     without a model the threshold backend runs, as in JAX), or Cellpose's
-    with its `CPnet` `model` at `CellposeConfig()`'s settings.  Any other
-    name raises ValueError."""
+    with its network `model` (CPnet or the ViT) at `CellposeConfig()`'s
+    settings.  Any other name raises ValueError."""
     if cfg.backend not in BACKENDS:
         raise ValueError(f"segment_frame: unknown segmentation backend {cfg.backend!r}; "
                          f"known: {BACKENDS}")
-    if cfg.backend == "cellpose":
+    if cfg.backend in ("cellpose", "cellpose_sam"):
         if model is None:
-            raise ValueError("segment_frame: the cellpose backend needs its CPnet model")
+            raise ValueError("segment_frame: the cellpose backend needs its CPnet or ViT model")
         return CellposeBackend(None, model=model)(seg_channels)
     if cfg.backend == "threshold" or model is None:
         return threshold_segment(seg_channels, threshold_percentile=cfg.threshold_percentile,
@@ -301,14 +309,14 @@ def select_backend(seg_cfg: SegConfig, cell_capacity: int, unet_variables=None, 
     `StarDistBackend` (`raster_cap` = `cell_capacity` unless set), whose
     twin takes every overflow re-run, on `device`.  With the Cellpose
     backend `unet_variables` are the Cellpose weights (a dict of
-    Cellpose-named arrays, `io.artifacts.load_cellpose_weights`), required,
-    and the backend is `CellposeBackend` at `CellposeConfig()`.  Otherwise
-    `ThresholdBackend` and its exact twin.  An unknown backend name raises
-    ValueError."""
+    Cellpose-named arrays, `io.artifacts.load_cellpose_weights`: CPnet's
+    or Cellpose-SAM's), required, and the backend is `CellposeBackend` at
+    `CellposeConfig()`.  Otherwise `ThresholdBackend` and its exact twin.
+    An unknown backend name raises ValueError."""
     if seg_cfg.backend not in BACKENDS:
         raise ValueError(f"select_backend: unknown segmentation backend {seg_cfg.backend!r}; "
                          f"known: {BACKENDS}")
-    if seg_cfg.backend == "cellpose":
+    if seg_cfg.backend in ("cellpose", "cellpose_sam"):
         if unet_variables is None:
             raise ValueError("select_backend: the cellpose backend needs its weights "
                              "(--cellpose-weights)")

@@ -64,8 +64,9 @@ class ProductionMutantScreening:
     """The screener.  `unet_variables` (flax-layout numpy, as
     `io.artifacts.load_unet_variables` returns) selects the StarDist
     backend; without them, or with `config.seg.backend == "threshold"`, the
-    threshold backend runs.  With `config.seg.backend == "cellpose"` they
-    are the Cellpose weights (`io.artifacts.load_cellpose_weights`), on one
+    threshold backend runs.  With `config.seg.backend` "cellpose" or
+    "cellpose_sam" they are the Cellpose weights
+    (`io.artifacts.load_cellpose_weights`), on one
     device (no mesh).  Everything lives on `device` (default: the
     card; without one and without `device="cpu"` this raises).  With a
     `mesh` the home device is the mesh's first, which a `device` passed
@@ -87,8 +88,8 @@ class ProductionMutantScreening:
         self.decode_seconds = 0.0  # TIFF decode, summed over the ingest workers
         # the backend's label maps through the run-length regionprops
         # (StarDist raster-capped); the exact twin takes every overflow re-run
-        if mesh is not None and config.seg.backend == "cellpose":
-            raise ValueError("the cellpose backend screens on one device: no mesh")
+        if mesh is not None and config.seg.backend in ("cellpose", "cellpose_sam"):
+            raise ValueError(f"the {config.seg.backend} backend screens on one device: no mesh")
         self._segment, self._segment_fallback, self._unet = select_backend(
             config.seg, config.extract.cell_capacity, unet_variables, self.device)
         # plate-scale backends: the capacities scale with the frame's area

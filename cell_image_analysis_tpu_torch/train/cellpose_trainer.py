@@ -1,5 +1,5 @@
-"""Training of the Cellpose backend's network (`models.cellpose.CPnet`) on
-synthetic frames, with Cellpose's loss.
+"""Training of the Cellpose backend's networks (`models.cellpose.CPnet`,
+`models.vit_sam.ViTSAM`) on synthetic frames, with Cellpose's loss.
 
 The JAX package has no counterpart.  As MouseLand/cellpose `train.train_seg`
 does: the targets are each instance's flows (the heat-diffusion flows of
@@ -13,7 +13,9 @@ momentum 0.05 for eval.
 - `synthetic_set`: frames and true instance labels of
   `utils.synthetic.make_frame_instances` (the generator the benchmark's
   traffic copies), each frame's channel normalized as `run_tiled` does;
-- `fit_cpnet`: the training loop;
+- `fit_cellpose`: the training loop of any Cellpose network (its
+  `in_channels` and `tile`; the parameters that require grad); `fit_cpnet`
+  runs it on a fresh CPnet;
 - `self_check`: the share of planted cells that the trained backend
   finds again at IoU >= 0.5 on held-out frames.
 """
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cell_image_analysis_tpu_torch.models.cellpose import CPnet, init_cpnet, normalize99
+from cell_image_analysis_tpu_torch.models.cellpose import init_cpnet, normalize99
 from cell_image_analysis_tpu_torch.ops.cellpose_masks import masks_to_flows
 from cell_image_analysis_tpu_torch.utils.synthetic import make_frame_instances
 
@@ -44,17 +46,18 @@ def synthetic_set(n_frames: int, size: int, n_cells: int, seed: int, device) -> 
     return normalize99(seg), lab, flows
 
 
-def cellpose_loss(model: CPnet, x: torch.Tensor, labels: torch.Tensor,
+def cellpose_loss(model, x: torch.Tensor, labels: torch.Tensor,
                   flows: torch.Tensor) -> torch.Tensor:
-    """x (N, h, w, 2), labels (N, h, w), flows (N, 2, h, w)."""
+    """x (N, h, w, in_channels), labels (N, h, w), flows (N, 2, h, w)."""
     y = model(x)
     loss = F.mse_loss(y[..., :2], 5.0 * flows.permute(0, 2, 3, 1)) / 2.0
     return loss + F.binary_cross_entropy_with_logits(y[..., 2], (labels > 0).float())
 
 
-def _batch(images, labels, flows, idx, tile: int, gen: torch.Generator) -> tuple:
+def _batch(images, labels, flows, idx, tile: int, gen: torch.Generator, nchan: int) -> tuple:
     """Random tile^2 crops of the frames `idx`, each flipped at random
-    (a flip negates its axis's flow)."""
+    (a flip negates its axis's flow), in channel 0 of `nchan` (the others
+    zeros)."""
     n, h, w = images.shape
     xs, ls, fs = [], [], []
     for i in idx.tolist():
@@ -72,17 +75,21 @@ def _batch(images, labels, flows, idx, tile: int, gen: torch.Generator) -> tuple
         ls.append(lb)
         fs.append(fl)
     x = torch.stack(xs)
-    x = torch.stack([x, torch.zeros_like(x)], dim=-1)
+    x = torch.cat([x[..., None], x.new_zeros(x.shape + (nchan - 1,))], dim=-1)
     return x, torch.stack(ls), torch.stack(fs)
 
 
-def fit_cpnet(images, labels, flows, steps: int = 3000, batch: int = 8, lr: float = 2e-3,
-              tile: int = 224, seed: int = 0, nbase=(2, 32, 64, 128, 256),
-              log_every: int = 0) -> tuple:
-    """(eval-mode CPnet on the images' device, [(step, loss)] logged)."""
+def fit_cellpose(model, images, labels, flows, steps: int = 3000, batch: int = 8,
+                 lr: float = 2e-3, tile: int | None = None, seed: int = 0,
+                 log_every: int = 0) -> tuple:
+    """(`model` in eval mode on the images' device, [(step, loss)] logged):
+    AdamW on the parameters of `model` that require grad, over crops of
+    `tile` (default the network's own) in its `in_channels`."""
     device = images.device
-    model = init_cpnet(seed, nbase).to(device).train()
-    opt = torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=1e-5)
+    model = model.to(device).train()
+    tile = model.tile if tile is None else tile
+    opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=lr,
+                            weight_decay=1e-5)
     gen = torch.Generator().manual_seed(seed)
     warm = max(1, min(100, steps // 10))
     log = []
@@ -91,7 +98,7 @@ def fit_cpnet(images, labels, flows, steps: int = 3000, batch: int = 8, lr: floa
         for g in opt.param_groups:
             g["lr"] = rate
         idx = torch.randint(0, images.shape[0], (batch,), generator=gen)
-        x, lb, fl = _batch(images, labels, flows, idx, tile, gen)
+        x, lb, fl = _batch(images, labels, flows, idx, tile, gen, model.in_channels)
         loss = cellpose_loss(model, x, lb, fl)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -100,6 +107,14 @@ def fit_cpnet(images, labels, flows, steps: int = 3000, batch: int = 8, lr: floa
             log.append((step, loss.item()))
             print(f"step {step}: loss {log[-1][1]:.4f}", flush=True)
     return model.eval(), log
+
+
+def fit_cpnet(images, labels, flows, steps: int = 3000, batch: int = 8, lr: float = 2e-3,
+              tile: int = 224, seed: int = 0, nbase=(2, 32, 64, 128, 256),
+              log_every: int = 0) -> tuple:
+    """(eval-mode CPnet on the images' device, [(step, loss)] logged)."""
+    return fit_cellpose(init_cpnet(seed, nbase), images, labels, flows, steps=steps,
+                        batch=batch, lr=lr, tile=tile, seed=seed, log_every=log_every)
 
 
 def matched_share(true: np.ndarray, pred: np.ndarray, iou: float = 0.5) -> tuple:

@@ -40,7 +40,12 @@ Phases (any failure exits non-zero before the last line is printed):
    torch.kthvalue (the library call); the flow following kernel
    (`csrc/follow_flows.cu`, Cellpose's 200 steps) on (16, 2, 1024, 1024)
    flows made from the 16 frames' StarDist labels: within 1e-4 px of its
-   plain version, every pixel truncated alike; and, with phase 16, at the 4096^2
+   plain version, every pixel truncated alike; the ViT attention kernel
+   (`csrc/vit_attention.cu`) at Cellpose-SAM's batch, 100 tiles x 16
+   heads of 1,024 tokens (random q, k, v and bias terms): within 1e-5 of
+   the largest output of the plain materialised form computed in float64
+   (the float32 plain form's own error printed beside it), its bound from
+   the benchmark's `attention_work` rule; and, with phase 16, at the 4096^2
    plate row's shapes: Winograd's Conv_1 on (2, 4096, 4096, 32 -> 32)
    within 1e-5 of cuDNN, segment sum, CLAHE and the select (4 ranks) on
    the row's first batch (its frames made by a worker process that starts
@@ -270,7 +275,21 @@ Phases (any failure exits non-zero before the last line is printed):
    against its plain version (`_HeldAgainstPlain`; each of CPnet's 32
    convs with its input prologue at 1e-5).  `--phases 0,1,17` runs it
    alone (exit 1: no result line);
-18. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
+18. the Cellpose backend with Cellpose-SAM's ViT: `CellposeBackend` over
+   `benchmark/data/cellpose_sam_synthetic.npz` (ViT-L at its published
+   widths, 100 256^2 tiles in one call, as the benchmark's cell) screening
+   the first 4 of the 16 frames through `score_frames_fused_start` /
+   `_wait`, a warm-up with every kernel call held against its plain
+   version (each of the 24 attention calls within 1e-5 of the largest
+   output of the plain form in float64: on the card the float32 plain
+   form itself reads up to ~1e-5 from it at these activations, the
+   kernel ~3.5e-6), then a run with the counts set to 0 just
+   before and read after: the attention kernel must launch once a block
+   in each, and the kernels of phase 17 must launch, no batch may fall
+   back to the exact twin, and the cells pass `_check_result`; cells/s
+   and peak memory are printed.  `--phases 0,1,18` runs it alone (exit 1:
+   no result line);
+19. a JSON line with each kernel's numbers, the `nvidia-smi` name/power
    line, and the final `{"ok": true, "device": {...}}` line.
 
 It imports no JAX.  Needs the rest of the repository beside it.
@@ -315,7 +334,7 @@ H100_TF32_FLOPS = 495e12
 THRESH_KW = dict(chunk=32, caps=(64, 96), label_capacity=4096, cell_capacity=128,
                  fg_fraction=0.12)
 N_BUCKETS = 3  # caps 64 and 96, and the full crop capacity
-ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17}
+ALL_PHASES = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18}
 TRAIN_EPOCHS = 5  # phase 10's epochs (the CAE's width is never cut)
 # phase 11: the recipe of assets/unet_synthetic.pkl (scripts/make_unet_weights.py
 # --dense: 8 crowded frames of 256^2, 400 full-batch epochs at lr 3e-3), at
@@ -398,6 +417,14 @@ CELLPOSE_WEIGHTS = os.path.join(REPO, "benchmark", "data", "cellpose_synthetic.n
 CELLPOSE_KERNELS = ("follow_flows", "winograd_conv3x3", "kthvalue_radix", "segment_sum",
                     "clahe_cells", "cc_tile_labels")
 CELLPOSE_TILES = 576   # phase 2: CPnet's tiles a call, `CellposeConfig().tile_chunk`
+# phase 18: Cellpose-SAM's weights (scripts/make_cellpose_sam_weights_torch.py),
+# the kernels its path launches, and the benchmark cell's batch: 4 frames,
+# 100 tiles of 256^2 in one ViT call; phase 2: its attention, 16 heads of 64
+# over a 32 x 32 token grid
+CELLPOSE_SAM_WEIGHTS = os.path.join(REPO, "benchmark", "data", "cellpose_sam_synthetic.npz")
+CELLPOSE_SAM_KERNELS = ("vit_attention", *CELLPOSE_KERNELS)
+CELLPOSE_SAM_FRAMES, CELLPOSE_SAM_TILES = 4, 100
+VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM, VIT_GRID = 16, 1024, 64, 32
 # phase 15: the train round trip of JAX's scripts/parity_train_onchip.py (6
 # training frames, 8 epochs) at 512^2 and 50 cells a frame, a few hundred
 # cells, so that its CPU half stays near two minutes: frames, side, cells, epochs
@@ -748,6 +775,62 @@ def _winograd_prologue_check(torch, dev) -> dict:
     return {f"cpnet_{k}": v for k, v in sums.items()} | dict(cpnet_max_rel_err=err)
 
 
+def _vit_attention_errors(got, q, k, v, rel_h, rel_w, scale) -> tuple:
+    """(the kernel's output `got`, the float32 plain form's): each one's
+    max |error| over the largest output, against the plain form computed
+    in float64, 100 heads at a time."""
+    from cell_image_analysis_tpu_torch.ops.vit_attention import vit_attention_plain
+
+    err = err32 = top = 0.0
+    for s in range(0, q.shape[0], 100):
+        ins = [t[s:s + 100] for t in (q, k, v, rel_h, rel_w)]
+        ref = vit_attention_plain(*(t.double() for t in ins), scale)
+        err = max(err, float((got[s:s + 100].double() - ref).abs().max()))
+        err32 = max(err32, float((vit_attention_plain(*ins, scale).double() - ref).abs().max()))
+        top = max(top, float(ref.abs().max()))
+    return err / top, err32 / top
+
+
+def _vit_attention_check(torch, dev) -> dict:
+    """The ViT attention kernel at Cellpose-SAM's batch: 100 tiles x 16
+    heads of 1,024 tokens and 64 channels, random q, k, v and bias terms;
+    max |kernel - plain| within 1e-5 of the largest output, the plain
+    materialised form computed in float64; its device time, the event-timed call, the plain
+    form's time and its bound by the benchmark's rule (`backends/
+    cellpose_sam/counts.attention_work`: the scores' and P V's products
+    once, at the TF32 peak, and the two bias adds; q, k, v, the bias terms
+    and the output once in float32).  No library call takes the bias
+    without materialising it."""
+    from cell_image_analysis_tpu_torch.ops.cuda.vit_attention import vit_attention_cuda
+    from cell_image_analysis_tpu_torch.ops.vit_attention import vit_attention_plain
+
+    bh, n, d, grid = CELLPOSE_SAM_TILES * VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM, VIT_GRID
+    gen = torch.Generator(device=dev).manual_seed(25)
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev) for _ in range(3))
+    rel_h, rel_w = (torch.randn((bh, n, grid), generator=gen, device=dev) for _ in range(2))
+    scale = d ** -0.5
+    got = vit_attention_cuda(q, k, v, rel_h, rel_w, scale)
+    rel, rel32 = _vit_attention_errors(got, q, k, v, rel_h, rel_w, scale)
+    del got
+    if not rel <= 1e-5:
+        raise AssertionError(f"[2] vit_attention ({bh}, {n}, {d}): max |kernel - plain, "
+                             f"float64| {rel:.3e} of the largest output > 1e-5")
+    t_d = device_ms(lambda: vit_attention_cuda(q, k, v, rel_h, rel_w, scale),
+                    ("vit_attention",), n=5)
+    t_k = time_ms(lambda: vit_attention_cuda(q, k, v, rel_h, rel_w, scale), n=5)
+    t_p = time_ms(lambda: vit_attention_plain(q, k, v, rel_h, rel_w, scale), n=3)
+    b_ms, b_by = bound(4 * bh * n * (4 * d + 2 * grid), 4.0 * bh * n * n * d + 2.0 * bh * n * n,
+                       H100_TF32_FLOPS)
+    log(f"[2] vit_attention at {CELLPOSE_SAM_TILES} tiles x {VIT_HEADS} heads of {n} tokens x "
+        f"{d}: max |kernel - plain, float64| {rel:.3e} of the largest output (the float32 "
+        f"plain form's {rel32:.3e}); kernel device {t_d:.3f} ms, "
+        f"wrapper call {t_k:.3f} ms; bound {b_ms:.3f} ms ({b_by}; its 3xTF32 products "
+        f"{3 * b_ms:.3f} ms), {100 * b_ms / t_d:.1f}% of it; plain (materialised scores) "
+        f"{t_p:.3f} ms")
+    return dict(max_rel_err=rel, plain32_max_rel_err=rel32, ms=t_d, event_ms=t_k, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[bh, n, d])
+
+
 def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
     from cell_image_analysis_tpu_torch.ops.cc import (
@@ -872,6 +955,7 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
                                  threshold_event_ms=thr["event_ms"],
                                  threshold_library_ms=thr["library_ms"])
     res["follow_flows"] = _follow_flows_check(torch, main["labels"])
+    res["vit_attention"] = _vit_attention_check(torch, dev)
     _cc_structural(torch, dev)
     if plate is not None:
         del masks
@@ -965,11 +1049,13 @@ def _kernel_modules():
         flows,
         kthvalue,
         segsum,
+        vit_attention,
         winograd,
     )
 
     return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_cells": clahe_kernel,
-            "cc_tile_labels": cc, "kthvalue_radix": kthvalue, "follow_flows": flows}
+            "cc_tile_labels": cc, "kthvalue_radix": kthvalue, "follow_flows": flows,
+            "vit_attention": vit_attention}
 
 
 def _reset_launches() -> None:
@@ -1266,9 +1352,56 @@ def phase_cellpose(torch, dev, stage_a, segs, greens, params_model) -> dict:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if twin.calls:
         raise AssertionError(f"[17] Cellpose: {twin.calls} batches fell back to the exact twin")
-    log(f"[17] Cellpose (CPnet nbase {backend.model.nbase}, {backend.cfg.tile}^2 tiles, "
+    log(f"[17] Cellpose (CPnet nbase {backend.model.nbase}, {backend.model.tile}^2 tiles, "
         f"{backend.cfg.niter} steps) on the {n_frames} frames: {n} cells, {seconds:.3f} s wall, "
         f"{n / seconds:.1f} cells/s; peak {peak_gib:.3f} GiB; no fallback [{smi_line()}]")
+    return dict(launches=launches, cells=n, seconds=seconds, peak_gib=peak_gib)
+
+
+def phase_cellpose_sam(torch, dev, stage_a, segs, greens, params_model) -> dict:
+    """Phase 18 (see the module docstring): the Cellpose backend with
+    Cellpose-SAM's ViT on the first 4 of the 16 frames (100 tiles, one ViT
+    call), a warm-up held against the plain versions, then a run with the
+    counts set to 0 just before; returns its launches, cells, wall
+    seconds and peak memory."""
+    from cell_image_analysis_tpu_torch.config import CellposeConfig
+    from cell_image_analysis_tpu_torch.io.artifacts import load_cellpose_weights
+    from cell_image_analysis_tpu_torch.models.segmentation import CellposeBackend
+    from cell_image_analysis_tpu_torch.pipeline.scoring import (
+        score_frames_fused_start,
+        score_frames_fused_wait,
+    )
+
+    model, params = params_model
+    backend = CellposeBackend(load_cellpose_weights(CELLPOSE_SAM_WEIGHTS),
+                              CellposeConfig(tile_chunk=CELLPOSE_SAM_TILES), device=dev)
+    depth = len(backend.model.encoder.blocks)
+    twin = _Recording(backend.exact_twin())
+    segs, greens = segs[:CELLPOSE_SAM_FRAMES], greens[:CELLPOSE_SAM_FRAMES]
+
+    def run():
+        return score_frames_fused_wait(score_frames_fused_start(
+            model, params, segs, greens, backend, chunk=32, caps=(64, 96),
+            fallback_segment_fn=twin, **stage_a))
+
+    _, held, _ = _counted(torch, run, CELLPOSE_SAM_KERNELS,
+                          "[18] Cellpose-SAM, first run (warm-up), held")
+    torch.cuda.reset_peak_memory_stats(dev)
+    (scores, stats), launches, seconds = _counted(torch, run, CELLPOSE_SAM_KERNELS,
+                                                  "[18] Cellpose-SAM main path", held=False)
+    for tag, got in (("held warm-up", held), ("main path", launches)):
+        if got["vit_attention"] != depth:
+            raise AssertionError(f"[18] Cellpose-SAM {tag}: {got['vit_attention']} attention "
+                                 f"launches for the ViT's {depth} blocks")
+    n = _check_result(scores, stats, CELLPOSE_SAM_FRAMES)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if twin.calls:
+        raise AssertionError(f"[18] Cellpose-SAM: {twin.calls} batches fell back to the exact "
+                             "twin")
+    log(f"[18] Cellpose-SAM (ViT depth {depth}, {backend.model.tile}^2 tiles, "
+        f"{CELLPOSE_SAM_TILES} a call, {backend.cfg.niter} steps) on {CELLPOSE_SAM_FRAMES} "
+        f"frames: {n} cells, {seconds:.3f} s wall, {n / seconds:.1f} cells/s; peak "
+        f"{peak_gib:.3f} GiB; no fallback [{smi_line()}]")
     return dict(launches=launches, cells=n, seconds=seconds, peak_gib=peak_gib)
 
 
@@ -1329,23 +1462,26 @@ class _HeldAgainstPlain:
     CLAHE and connected components bit-equal, Winograd
     max|y - ref| / max|ref| < 1e-5 (a Winograd call on the autograd route
     is held where its forward and its data gradient call the wrapper with
-    grad off).  The path gets the kernel's result.  The plain versions
+    grad off), the ViT attention max|y - ref| <= 1e-5 max|ref| with ref
+    the plain form in float64 (the float32 plain form's own error beside).  The path gets the kernel's result.  The plain versions
     launch no kernel of the port, so the launch counts see the path's
     launches only.  `held` maps a kernel to {input signature:
     calls}."""
 
     def __init__(self, torch):
         from cell_image_analysis_tpu_torch.ops import winograd
-        from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum
+        from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum, vit_attention
 
         self.torch = torch
         self.held = {"winograd_conv3x3": {}, "segment_sum": {}, "clahe_cells": {},
-                     "cc_tile_labels": {}}
-        self.max_rel_err = 0.0
+                     "cc_tile_labels": {}, "vit_attention": {}}
+        self.max_rel_err = {"winograd_conv3x3": 0.0, "vit_attention": 0.0}
+        self.vit_plain32_err = 0.0
         self._targets = ((segsum, "segment_sums_cuda", self._segsum),
                          (clahe_kernel, "clahe_cells_cuda", self._clahe),
                          (cc, "label_components_cuda", self._cc),
-                         (winograd, "winograd_conv3x3", self._winograd))
+                         (winograd, "winograd_conv3x3", self._winograd),
+                         (vit_attention, "vit_attention_cuda", self._vit))
         self._real = {}
 
     def __enter__(self):
@@ -1413,9 +1549,21 @@ class _HeldAgainstPlain:
         if not rel < 1e-5:
             raise AssertionError(f"winograd {tuple(x.shape)} -> {W.shape[-1]} {fused}: relative "
                                  f"error {rel:.3e} >= 1e-5 on a path's own activations")
-        self.max_rel_err = max(self.max_rel_err, rel)
+        self.max_rel_err["winograd_conv3x3"] = max(self.max_rel_err["winograd_conv3x3"], rel)
         self._note("winograd_conv3x3", (tuple(x.shape), W.shape[-1], fused))
         return y
+
+    def _vit(self, q, k, v, rel_h, rel_w, scale):
+        got = self._real["vit_attention_cuda"](q, k, v, rel_h, rel_w, scale)
+        rel, rel32 = _vit_attention_errors(got, q, k, v, rel_h, rel_w, scale)
+        if not rel <= 1e-5:
+            raise AssertionError(f"vit_attention {tuple(q.shape)}: max |kernel - plain, float64| "
+                                 f"{rel:.3e} of the largest output > 1e-5 on a path's own "
+                                 f"activations (the float32 plain form's {rel32:.3e})")
+        self.max_rel_err["vit_attention"] = max(self.max_rel_err["vit_attention"], rel)
+        self.vit_plain32_err = max(self.vit_plain32_err, rel32)
+        self._note("vit_attention", (tuple(q.shape), rel_h.shape[-1]))
+        return got
 
     def report(self, tag: str, needed: tuple) -> None:
         """Log what was held; fail if a kernel in `needed` was held no time."""
@@ -1426,8 +1574,11 @@ class _HeldAgainstPlain:
                                          "plain version")
                 continue
             shapes = "; ".join(f"{sig} x{n}" for sig, n in sorted(seen.items(), key=str))
-            extra = (f", max relative error {self.max_rel_err:.3e} (gate 1e-5)"
-                     if kernel == "winograd_conv3x3" else ", bit-equal")
+            extra = (f", max relative error {self.max_rel_err[kernel]:.3e} (gate 1e-5)"
+                     if kernel in self.max_rel_err else ", bit-equal")
+            if kernel == "vit_attention":
+                extra += (f" against the plain form in float64 (the float32 plain form's "
+                          f"{self.vit_plain32_err:.3e})")
             log(f"{tag} {kernel}: {sum(seen.values())} calls held against the plain version at "
                 f"the path's own inputs{extra}: {shapes}")
 
@@ -3262,7 +3413,7 @@ def main() -> int:
             phase_build()
             mark("1")
         segs = greens = main_a = frames_sha = None
-        if phases & {2, 3, 5, 6, 12, 14, 17}:
+        if phases & {2, 3, 5, 6, 12, 14, 17, 18}:
             segs, greens, frames_sha = make_frames(torch, dev)
         if phases & {2, 3}:
             from cell_image_analysis_tpu_torch.models.segmentation import StarDistBackend
@@ -3312,6 +3463,14 @@ def main() -> int:
             launches["follow_flows"] = cellpose["launches"]["follow_flows"]
             torch.cuda.empty_cache()
             mark("17")
+        if 18 in phases:
+            cellpose_sam = phase_cellpose_sam(torch, dev, stage_a, segs, greens, params_model)
+            launches["vit_attention"] = cellpose_sam["launches"]["vit_attention"]
+            if 2 in phases:
+                kernels["vit_attention"].update(
+                    {f"main_path_{k}": cellpose_sam[k] for k in ("cells", "seconds", "peak_gib")})
+            torch.cuda.empty_cache()
+            mark("18")
         phase3 = (main_result, frames_sha) if main_result is not None else None
         del main_a, main_result
         if not phases & {12, 14}:
@@ -3401,10 +3560,14 @@ def main() -> int:
         "follow_flows": ("csrc/follow_flows.cu",
                          "no Pallas kernel: the JAX package has no Cellpose; the 200 "
                          "grid_sample steps of Cellpose's dynamics.steps2D_interp"),
+        "vit_attention": ("csrc/vit_attention.cu",
+                          "no Pallas kernel: the JAX package has no Cellpose-SAM; SAM's "
+                          "Attention with add_decomposed_rel_pos, its scores materialised"),
     }
     # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
     # phase 5 (a), the threshold backend; the flow following: phase 17,
-    # Cellpose); `launches_per_batch`: the kernel launches on the card
+    # Cellpose; the ViT attention: phase 18, Cellpose-SAM, whose row's
+    # `main_path_*` keys are that run's cells, wall seconds and peak GiB); `launches_per_batch`: the kernel launches on the card
     # they make (a CC call is the module's KERNELS_PER_CALL);
     # `screening_launches`: wrapper calls while phase 7 screened its
     # folders; `training_launches`: wrapper calls while phase 10 trained

@@ -545,3 +545,129 @@ def narrow_unet(epochs: int = 100):
         unet_train_step(model, opt, batch)
     model.eval()
     return model, {"params": unet_params_to_jax(model.state_dict())}
+
+
+def _tf32_np(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 on float32 values (`ops.winograd.tf32_round`)."""
+    bits = np.asarray(x, np.float32).view(np.int32)
+    return ((bits + 0x1000) & -0x2000).astype(np.int32).view(np.float32)
+
+
+def vit_attention_kernel_emulation(q, k, vt, rel_h, rel_w, scale: float) -> np.ndarray:
+    """`csrc/vit_attention.cu` on the CPU, block by block and thread by
+    thread, with the kernel's index arithmetic: the cp.async offsets of K
+    and of the key-permuted `vt` in the stage, the in-place TF32 split, the
+    wgmma m64n32k8 operands (A from each thread's fragment registers, B
+    from the stage through the no-swizzle K-major descriptor: element (k,
+    n) at 128 (k / 4) + 4 n + k % 4 floats), the accumulators' rows and
+    columns, the bias, the online softmax with exp2 and the P fragments
+    taken from the accumulators as they lie, each key block's P V summed
+    apart and added to the output.  The products sum in float64;
+    q, k, vt (BH, N, 64) / (BH, 64, N), rel_h (BH, N, N / 32), rel_w (BH,
+    N, 32) float32 numpy -> (BH, N, 64) float32."""
+    BH, N, D = q.shape
+    KH, HALF, OPER, LOG2E = rel_h.shape[-1], 16 * 32 * 4, 2 * 16 * 32 * 4, np.float32(
+        1.4426950408889634)
+    out = np.zeros((BH, N, D), np.float32)
+    tid = np.arange(256)
+    lane, warp = tid & 31, tid >> 5
+    g, t = lane >> 2, lane & 3
+
+    def wgmma(acc, a_regs, smem, base, wg):
+        # acc (128, 16), a_regs (128, 4): the warpgroup's threads
+        A = np.zeros((64, 8))
+        th = np.arange(128)
+        for i in range(4):
+            rows = 16 * (th >> 5) + ((th & 31) >> 2) + 8 * (i & 1)
+            cols = (th & 3) + 4 * (i >> 1)
+            A[rows, cols] = a_regs[:, i]
+        kk, nn = np.meshgrid(np.arange(8), np.arange(32), indexing="ij")
+        B = smem[base + 128 * (kk // 4) + 4 * nn + kk % 4].astype(np.float64)
+        C = A @ B
+        for e in range(16):
+            n, ee = e >> 2, e & 3
+            rows = 16 * (th >> 5) + ((th & 31) >> 2) + 8 * (ee >> 1)
+            cols = 8 * n + 2 * (th & 3) + (ee & 1)
+            acc[:, e] += C[rows, cols]
+
+    for bh in range(BH):
+        for qb in range(N // 128):
+            row0 = qb * 128 + 16 * warp + g                       # (256,)
+            qa = np.zeros((256, 8, 8), np.float32)
+            for s in range(8):
+                for i in range(4):
+                    x = q[bh, row0 + 8 * (i & 1), 8 * s + t + 4 * (i >> 1)] * np.float32(scale)
+                    qa[:, s, i] = _tf32_np(x)
+                    qa[:, s, 4 + i] = _tf32_np(x - qa[:, s, i])
+            rw = np.zeros((256, 2, 8), np.float32)
+            for r in range(2):
+                for n in range(4):
+                    for j in range(2):
+                        rw[:, r, 2 * n + j] = rel_w[bh, row0 + 8 * r, 8 * n + 2 * t + j]
+            o = np.zeros((256, 2, 16), np.float64)
+            m = np.full((256, 2), -np.inf, np.float32)
+            l_ = np.zeros((256, 2), np.float32)
+            for blk in range(N // 64):
+                S = np.zeros(4 * OPER, np.float32)
+                k0 = blk * 64
+                for e in range(1024):
+                    j, n = (e & 3) + 4 * (e >> 8), (e >> 2) & 63
+                    off = (n >> 5) * HALF + j * 128 + (n & 31) * 4
+                    S[off:off + 4] = k[bh, k0 + n, 4 * j:4 * j + 4]
+                    S[2 * OPER + off:2 * OPER + off + 4] = vt[bh, n, k0 + 4 * j:k0 + 4 * j + 4]
+                for op in range(2):
+                    x = S[2 * op * OPER:(2 * op + 1) * OPER].copy()
+                    S[2 * op * OPER:(2 * op + 1) * OPER] = _tf32_np(x)
+                    S[(2 * op + 1) * OPER:(2 * op + 2) * OPER] = _tf32_np(x - _tf32_np(x))
+                for wg in range(2):
+                    th = slice(128 * wg, 128 * wg + 128)
+                    sc = np.zeros((128, 2, 16), np.float64)
+                    for s in range(8):
+                        for h in range(2):
+                            base = h * HALF + 2 * s * 128
+                            wgmma(sc[:, h], qa[th, s, 4:], S, base, wg)
+                            wgmma(sc[:, h], qa[th, s, :4], S, OPER + base, wg)
+                            wgmma(sc[:, h], qa[th, s, :4], S, base, wg)
+                    sc = sc.astype(np.float32)
+                    r0 = row0[th]
+                    mx = m[th].copy()
+                    for h in range(2):
+                        for n in range(4):
+                            for e in range(4):
+                                r = e >> 1
+                                rh = rel_h[bh, r0 + 8 * r, 2 * blk + h]
+                                x = (sc[:, h, 4 * n + e] + rh) + rw[th, r, 2 * n + (e & 1)]
+                                sc[:, h, 4 * n + e] = x
+                                mx[:, r] = np.maximum(mx[:, r], x)
+                    quad = mx.reshape(32, 4, 2).max(axis=1)              # the xor-1, 2 shuffles
+                    mx = np.repeat(quad, 4, axis=0)
+                    alpha = np.exp2((m[th] - mx) * LOG2E).astype(np.float32)
+                    m[th] = mx
+                    l_[th] *= alpha
+                    pa = np.zeros((128, 8, 8), np.float32)
+                    for s in range(8):
+                        h, n = s >> 2, s & 3
+                        p = np.zeros((128, 4), np.float32)
+                        for e in range(4):
+                            p[:, e] = np.exp2((sc[:, h, 4 * n + e] - m[th, e >> 1]) * LOG2E)
+                            l_[th, e >> 1] += p[:, e]
+                        a = p[:, [0, 2, 1, 3]]
+                        pa[:, s, :4] = _tf32_np(a)
+                        pa[:, s, 4:] = _tf32_np(a - pa[:, s, :4])
+                    for h in range(2):                  # the block's P V apart
+                        pv = np.zeros((128, 16))
+                        for s in range(8):
+                            base = 2 * OPER + h * HALF + 2 * s * 128
+                            wgmma(pv, pa[:, s, 4:], S, base, wg)
+                            wgmma(pv, pa[:, s, :4], S, OPER + base, wg)
+                            wgmma(pv, pa[:, s, :4], S, base, wg)
+                        o[th, h] = (o[th, h].astype(np.float32) * alpha[:, (np.arange(16) >> 1) & 1]
+                                    + pv.astype(np.float32))
+            lq = np.repeat(l_.reshape(64, 4, 2).sum(axis=1), 4, axis=0)
+            for h in range(2):
+                for n in range(4):
+                    for r in range(2):
+                        for j in range(2):
+                            out[bh, row0 + 8 * r, 32 * h + 8 * n + 2 * t + j] = (
+                                o[:, h, 4 * n + 2 * r + j] / lq[:, r])
+    return out
