@@ -29,12 +29,15 @@ zeros):
   + a, 8j + b] = x1[64c + 8a + b, i, j] (`conv_transpose2d` with the
   identity W2), as a reshape; out (B, 256, 256, 3): (dy, dx, cellprob).
 
-The linears are float32 matmuls (the package turns TF32 off).  Parameter
+The blocks' qkv, proj, lin1 and lin2 run through `ops.vit_linear` (the
+3xTF32 tensor-core GEMM on the card, `F.linear` on the CPU); the other
+linears are float32 matmuls (the package turns TF32 off).  Parameter
 names are Cellpose-SAM's state-dict names (`encoder.blocks.0.attn.qkv.weight`,
 ...; W2 is not a parameter here).  Spans `vit.patch_embed`, `vit.blocks`,
 `vit.attention`, `vit.mlp`, `vit.neck`, `vit.readout`; counters
 `vit.tiles`, `vit.tokens` (and `vit.attention_calls` /
-`vit.attention_fused` from the op).
+`vit.attention_fused`, `vit.linear_calls` / `vit.linear_fused` from the
+ops).
 
 The weight format (`io.artifacts.load_cellpose_weights`): each of the 96
 large matrices of the blocks (`LOW_RANK`) is a seeded base, `randn(shape)
@@ -56,6 +59,7 @@ from torch import nn
 
 from cell_image_analysis_tpu_torch.ops import winograd
 from cell_image_analysis_tpu_torch.ops.vit_attention import vit_attention
+from cell_image_analysis_tpu_torch.ops.vit_linear import vit_linear
 from cell_image_analysis_tpu_torch.utils.profiler import count, span
 
 LN_EPS = 1e-6
@@ -83,6 +87,14 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
     return rel_pos[idx]
 
 
+def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A block's `nn.Linear` through `ops.vit_linear`; a `LowRankLinear`
+    (training) as it is."""
+    if isinstance(layer, nn.Linear):
+        return vit_linear(x, layer.weight, layer.bias)
+    return layer(x)
+
+
 class _Attention(nn.Module):
     def __init__(self, dim: int, heads: int, rows: int):
         super().__init__()
@@ -96,7 +108,7 @@ class _Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         n, hd = H * W, C // self.heads
-        qkv = self.qkv(x).reshape(B, n, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
+        qkv = _linear(self.qkv, x).reshape(B, n, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.contiguous().reshape(3, B * self.heads, n, hd).unbind(0)
         Rh, Rw = get_rel_pos(H, H, self.rel_pos_h), get_rel_pos(W, W, self.rel_pos_w)
         r_q = q.reshape(B * self.heads, H, W, hd)
@@ -104,7 +116,7 @@ class _Attention(nn.Module):
         rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, Rw).reshape(B * self.heads, n, W)
         o = vit_attention(q, k, v, rel_h, rel_w, self.scale)
         o = o.view(B, self.heads, H, W, hd).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)
-        return self.proj(o)
+        return _linear(self.proj, o)
 
 
 class _MLP(nn.Module):
@@ -114,7 +126,7 @@ class _MLP(nn.Module):
         self.lin2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin2(F.gelu(self.lin1(x)))
+        return _linear(self.lin2, F.gelu(_linear(self.lin1, x)))
 
 
 class _Block(nn.Module):

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "cia_kthvalue_radix_scratch_words": [_I, _I],
     "cia_follow_flows": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "cia_vit_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "cia_vit_linear": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host_native")

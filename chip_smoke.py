@@ -45,7 +45,13 @@ Phases (any failure exits non-zero before the last line is printed):
    heads of 1,024 tokens (random q, k, v and bias terms): within 1e-5 of
    the largest output of the plain materialised form computed in float64
    (the float32 plain form's own error printed beside it), its bound from
-   the benchmark's `attention_work` rule; and, with phase 16, at the 4096^2
+   the benchmark's `attention_work` rule; the ViT linear kernel
+   (`csrc/vit_linear.cu`) at the four block linears of Cellpose-SAM's
+   batch (M = 102,400 rows; (K, N) of qkv, proj, lin1 and lin2, random x,
+   W and bias): each within 2x cuBLAS float32's max |error| against the
+   product in float64 on the same inputs, its device time summed over the
+   four (a block's), its bound (3 x 2MNK at the TF32 peak, the 1xTF32 time
+   beside it) and cuBLAS float32 as the library call; and, with phase 16, at the 4096^2
    plate row's shapes: Winograd's Conv_1 on (2, 4096, 4096, 32 -> 32)
    within 1e-5 of cuDNN, segment sum, CLAHE and the select (4 ranks) on
    the row's first batch (its frames made by a worker process that starts
@@ -283,9 +289,11 @@ Phases (any failure exits non-zero before the last line is printed):
    version (each of the 24 attention calls within 1e-5 of the largest
    output of the plain form in float64: on the card the float32 plain
    form itself reads up to ~1e-5 from it at these activations, the
-   kernel ~3.5e-6), then a run with the counts set to 0 just
+   kernel ~3.5e-6; each of the 96 linear calls within 2x cuBLAS
+   float32's max |error| against the product in float64 on the same
+   activations), then a run with the counts set to 0 just
    before and read after: the attention kernel must launch once a block
-   in each, and the kernels of phase 17 must launch, no batch may fall
+   and the linear kernel four times a block in each, and the kernels of phase 17 must launch, no batch may fall
    back to the exact twin, and the cells pass `_check_result`; cells/s
    and peak memory are printed.  `--phases 0,1,18` runs it alone (exit 1:
    no result line);
@@ -422,9 +430,12 @@ CELLPOSE_TILES = 576   # phase 2: CPnet's tiles a call, `CellposeConfig().tile_c
 # 100 tiles of 256^2 in one ViT call; phase 2: its attention, 16 heads of 64
 # over a 32 x 32 token grid
 CELLPOSE_SAM_WEIGHTS = os.path.join(REPO, "benchmark", "data", "cellpose_sam_synthetic.npz")
-CELLPOSE_SAM_KERNELS = ("vit_attention", *CELLPOSE_KERNELS)
+CELLPOSE_SAM_KERNELS = ("vit_attention", "vit_linear", *CELLPOSE_KERNELS)
 CELLPOSE_SAM_FRAMES, CELLPOSE_SAM_TILES = 4, 100
 VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM, VIT_GRID = 16, 1024, 64, 32
+# phase 2: the blocks' linears, (K, N) of qkv, proj, lin1 and lin2 (ViT-L)
+VIT_LINEARS = {"qkv": (1024, 3072), "proj": (1024, 1024), "lin1": (1024, 4096),
+               "lin2": (4096, 1024)}
 # phase 15: the train round trip of JAX's scripts/parity_train_onchip.py (6
 # training frames, 8 epochs) at 512^2 and 50 cells a frame, a few hundred
 # cells, so that its CPU half stays near two minutes: frames, side, cells, epochs
@@ -831,6 +842,69 @@ def _vit_attention_check(torch, dev) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[bh, n, d])
 
 
+def _vit_linear_errors(got, x, w, b) -> tuple:
+    """(the kernel's output `got`, cuBLAS float32's `F.linear`): each one's
+    max |error| over the largest output, against the product in float64."""
+    import torch.nn.functional as F
+
+    ref = F.linear(x.double(), w.double(), None if b is None else b.double())
+    top = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max()) / top
+    lib = float((F.linear(x, w, b).double() - ref).abs().max()) / top
+    return err, lib
+
+
+def _vit_linear_check(torch, dev) -> dict:
+    """The ViT linear kernel at Cellpose-SAM's four block linears, M =
+    100 tiles x 1,024 tokens, random x, W (x 0.02) and bias: each within 2x
+    cuBLAS float32's max |error| against float64; the row sums the four
+    (a block's): device time, the event-timed call, cuBLAS float32 (the
+    plain version and the library call: `F.linear`), the bound (3 x 2MNK at
+    the TF32 peak, the 3xTF32 products; x and y once in float32 set none of
+    them) with the 1xTF32 time beside it."""
+    import torch.nn.functional as F
+
+    from cell_image_analysis_tpu_torch.ops.cuda.vit_linear import vit_linear_cuda
+
+    M = CELLPOSE_SAM_TILES * VIT_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(26)
+    res, sums = {}, dict(ms=0.0, event_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_1xtf32_ms=0.0)
+    worst = 0.0
+    for name, (K, N) in VIT_LINEARS.items():
+        x = torch.randn((M, K), generator=gen, device=dev)
+        w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+        b = torch.randn((N,), generator=gen, device=dev) * 0.1
+        err, lib = _vit_linear_errors(vit_linear_cuda(x, w, b), x, w, b)
+        if not err <= 2 * lib:
+            raise AssertionError(f"[2] vit_linear {name} ({M}, {K}) x ({N}, {K}): max |kernel - "
+                                 f"float64| {err:.3e} of the largest output > 2x cuBLAS "
+                                 f"float32's {lib:.3e}")
+        t_d = device_ms(lambda: vit_linear_cuda(x, w, b), ("vit_linear",), n=5)
+        t_k = time_ms(lambda: vit_linear_cuda(x, w, b), n=5)
+        t_l = time_ms(lambda: F.linear(x, w, b), n=5)
+        b_ms, b_by = bound(4.0 * (M * K + N * K + N + M * N), 3 * 2.0 * M * N * K, H100_TF32_FLOPS)
+        one = 2.0 * M * N * K / H100_TF32_FLOPS * 1e3
+        res[name] = dict(shape=[M, K, N], max_rel_err=err, cublas_max_rel_err=lib, ms=t_d,
+                         event_ms=t_k, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                         bound_1xtf32_ms=one)
+        for k, v in (("ms", t_d), ("event_ms", t_k), ("library_ms", t_l), ("bound_ms", b_ms),
+                     ("bound_1xtf32_ms", one)):
+            sums[k] += v
+        worst = max(worst, err / lib)
+        log(f"[2] vit_linear {name} ({M} x {K} -> {N}): max |kernel - float64| {err:.3e} of the "
+            f"largest output (cuBLAS float32 {lib:.3e}); kernel device {t_d:.3f} ms "
+            f"({2.0 * M * N * K / t_d / 1e9:.1f} TFLOP/s of float32 work), wrapper call "
+            f"{t_k:.3f} ms; bound {b_ms:.3f} ms ({b_by}, 3xTF32), {100 * b_ms / t_d:.1f}% of it; "
+            f"1xTF32 {one:.3f} ms; cuBLAS float32 {t_l:.3f} ms")
+        del x, w, b
+    log(f"[2] vit_linear, a block's four: kernel device {sums['ms']:.3f} ms, cuBLAS float32 "
+        f"{sums['library_ms']:.3f} ms ({sums['library_ms'] / sums['ms']:.2f}x), bound "
+        f"{sums['bound_ms']:.3f} ms ({100 * sums['bound_ms'] / sums['ms']:.1f}%); error at most "
+        f"{worst:.2f}x cuBLAS float32's (gate 2)")
+    return dict(sums, plain_ms=sums["library_ms"], bound_by="operations",
+                max_err_over_cublas=worst, shapes=res)
+
+
 def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
     from cell_image_analysis_tpu_torch.models.segmentation import threshold_mask
     from cell_image_analysis_tpu_torch.ops.cc import (
@@ -956,6 +1030,7 @@ def phase_kernels(torch, dev, unet_vars, main, thresh, plate=None) -> dict:
                                  threshold_library_ms=thr["library_ms"])
     res["follow_flows"] = _follow_flows_check(torch, main["labels"])
     res["vit_attention"] = _vit_attention_check(torch, dev)
+    res["vit_linear"] = _vit_linear_check(torch, dev)
     _cc_structural(torch, dev)
     if plate is not None:
         del masks
@@ -1050,12 +1125,13 @@ def _kernel_modules():
         kthvalue,
         segsum,
         vit_attention,
+        vit_linear,
         winograd,
     )
 
     return {"winograd_conv3x3": winograd, "segment_sum": segsum, "clahe_cells": clahe_kernel,
             "cc_tile_labels": cc, "kthvalue_radix": kthvalue, "follow_flows": flows,
-            "vit_attention": vit_attention}
+            "vit_attention": vit_attention, "vit_linear": vit_linear}
 
 
 def _reset_launches() -> None:
@@ -1390,9 +1466,10 @@ def phase_cellpose_sam(torch, dev, stage_a, segs, greens, params_model) -> dict:
     (scores, stats), launches, seconds = _counted(torch, run, CELLPOSE_SAM_KERNELS,
                                                   "[18] Cellpose-SAM main path", held=False)
     for tag, got in (("held warm-up", held), ("main path", launches)):
-        if got["vit_attention"] != depth:
+        if got["vit_attention"] != depth or got["vit_linear"] != 4 * depth:
             raise AssertionError(f"[18] Cellpose-SAM {tag}: {got['vit_attention']} attention "
-                                 f"launches for the ViT's {depth} blocks")
+                                 f"and {got['vit_linear']} linear launches for the ViT's "
+                                 f"{depth} blocks (want {depth} and {4 * depth})")
     n = _check_result(scores, stats, CELLPOSE_SAM_FRAMES)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if twin.calls:
@@ -1463,25 +1540,35 @@ class _HeldAgainstPlain:
     max|y - ref| / max|ref| < 1e-5 (a Winograd call on the autograd route
     is held where its forward and its data gradient call the wrapper with
     grad off), the ViT attention max|y - ref| <= 1e-5 max|ref| with ref
-    the plain form in float64 (the float32 plain form's own error beside).  The path gets the kernel's result.  The plain versions
+    the plain form in float64 (the float32 plain form's own error beside),
+    the ViT linears max|y - ref| at most 2x cuBLAS float32's, ref the
+    product in float64.  The path gets the kernel's result.  The plain versions
     launch no kernel of the port, so the launch counts see the path's
     launches only.  `held` maps a kernel to {input signature:
     calls}."""
 
     def __init__(self, torch):
         from cell_image_analysis_tpu_torch.ops import winograd
-        from cell_image_analysis_tpu_torch.ops.cuda import cc, clahe_kernel, segsum, vit_attention
+        from cell_image_analysis_tpu_torch.ops.cuda import (
+            cc,
+            clahe_kernel,
+            segsum,
+            vit_attention,
+            vit_linear,
+        )
 
         self.torch = torch
         self.held = {"winograd_conv3x3": {}, "segment_sum": {}, "clahe_cells": {},
-                     "cc_tile_labels": {}, "vit_attention": {}}
+                     "cc_tile_labels": {}, "vit_attention": {}, "vit_linear": {}}
         self.max_rel_err = {"winograd_conv3x3": 0.0, "vit_attention": 0.0}
         self.vit_plain32_err = 0.0
+        self.linear_err = self.linear_cublas_err = self.linear_ratio = 0.0
         self._targets = ((segsum, "segment_sums_cuda", self._segsum),
                          (clahe_kernel, "clahe_cells_cuda", self._clahe),
                          (cc, "label_components_cuda", self._cc),
                          (winograd, "winograd_conv3x3", self._winograd),
-                         (vit_attention, "vit_attention_cuda", self._vit))
+                         (vit_attention, "vit_attention_cuda", self._vit),
+                         (vit_linear, "vit_linear_cuda", self._linear))
         self._real = {}
 
     def __enter__(self):
@@ -1565,6 +1652,19 @@ class _HeldAgainstPlain:
         self._note("vit_attention", (tuple(q.shape), rel_h.shape[-1]))
         return got
 
+    def _linear(self, x, w, b):
+        got = self._real["vit_linear_cuda"](x, w, b)
+        err, lib = _vit_linear_errors(got, x, w, b)
+        if not err <= 2 * lib:
+            raise AssertionError(f"vit_linear {tuple(x.shape)} -> {w.shape[0]}: max |kernel - "
+                                 f"float64| {err:.3e} of the largest output > 2x cuBLAS "
+                                 f"float32's {lib:.3e} on a path's own activations")
+        self.linear_err = max(self.linear_err, err)
+        self.linear_cublas_err = max(self.linear_cublas_err, lib)
+        self.linear_ratio = max(self.linear_ratio, err / lib)
+        self._note("vit_linear", (tuple(x.shape), w.shape[0]))
+        return got
+
     def report(self, tag: str, needed: tuple) -> None:
         """Log what was held; fail if a kernel in `needed` was held no time."""
         for kernel, seen in self.held.items():
@@ -1576,6 +1676,10 @@ class _HeldAgainstPlain:
             shapes = "; ".join(f"{sig} x{n}" for sig, n in sorted(seen.items(), key=str))
             extra = (f", max relative error {self.max_rel_err[kernel]:.3e} (gate 1e-5)"
                      if kernel in self.max_rel_err else ", bit-equal")
+            if kernel == "vit_linear":
+                extra = (f", max |error| against float64 {self.linear_err:.3e} of the largest "
+                         f"output (cuBLAS float32's up to {self.linear_cublas_err:.3e}), at most "
+                         f"{self.linear_ratio:.2f}x cuBLAS's on the same call (gate 2)")
             if kernel == "vit_attention":
                 extra += (f" against the plain form in float64 (the float32 plain form's "
                           f"{self.vit_plain32_err:.3e})")
@@ -3465,10 +3569,11 @@ def main() -> int:
             mark("17")
         if 18 in phases:
             cellpose_sam = phase_cellpose_sam(torch, dev, stage_a, segs, greens, params_model)
-            launches["vit_attention"] = cellpose_sam["launches"]["vit_attention"]
-            if 2 in phases:
-                kernels["vit_attention"].update(
-                    {f"main_path_{k}": cellpose_sam[k] for k in ("cells", "seconds", "peak_gib")})
+            for name in ("vit_attention", "vit_linear"):
+                launches[name] = cellpose_sam["launches"][name]
+                if 2 in phases:
+                    kernels[name].update({f"main_path_{k}": cellpose_sam[k]
+                                          for k in ("cells", "seconds", "peak_gib")})
             torch.cuda.empty_cache()
             mark("18")
         phase3 = (main_result, frames_sha) if main_result is not None else None
@@ -3563,10 +3668,13 @@ def main() -> int:
         "vit_attention": ("csrc/vit_attention.cu",
                           "no Pallas kernel: the JAX package has no Cellpose-SAM; SAM's "
                           "Attention with add_decomposed_rel_pos, its scores materialised"),
+        "vit_linear": ("csrc/vit_linear.cu",
+                       "no Pallas kernel: the JAX package has no ViT; the blocks' qkv, proj, "
+                       "lin1 and lin2 as cuBLAS float32 SGEMM (F.linear)"),
     }
     # `launches`: wrapper calls in one batch of 16 frames, phase 3 (CC:
     # phase 5 (a), the threshold backend; the flow following: phase 17,
-    # Cellpose; the ViT attention: phase 18, Cellpose-SAM, whose row's
+    # Cellpose; the ViT attention and linears: phase 18, Cellpose-SAM, whose rows'
     # `main_path_*` keys are that run's cells, wall seconds and peak GiB); `launches_per_batch`: the kernel launches on the card
     # they make (a CC call is the module's KERNELS_PER_CALL);
     # `screening_launches`: wrapper calls while phase 7 screened its

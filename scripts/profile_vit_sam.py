@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time Cellpose-SAM's network on the card: the fused attention kernel
 (`csrc/vit_attention.cu`) against the plain materialised form on one
-block's worth of heads, and the whole ViT-L forward over a batch of
-256^2 tiles, with its device time by kernel (torch.profiler).
+block's worth of heads, the linear kernel (`csrc/vit_linear.cu`) against
+cuBLAS float32 at one block's four linears, and the whole ViT-L forward
+over a batch of 256^2 tiles, with its device time by kernel
+(torch.profiler).
 
     python scripts/profile_vit_sam.py [--tiles 100] [--weights NPZ] [--out JSON]
 
@@ -10,13 +12,18 @@ Random weights (`init_vit_sam`) unless `--weights` names a Cellpose-SAM
 file.  Prints one JSON object: the card, the attention's device ms fused
 and plain with the fused one's error against the plain form and its
 least time (`benchmark/backends/cellpose_sam/counts.attention_work`'s
-rule for one call), the forward's ms, its top device ops, the peak
+rule for one call); for each of qkv, proj, lin1 and lin2 at the batch's
+rows (random x, W x 0.02 and bias) the kernel's and cuBLAS float32's ms
+(median of `--reps` event-timed calls) and max |error| against the
+product in float64 over the largest output, with the 3xTF32 bound (3 x
+2MNK at 495 TFLOP/s); the forward's ms, its top device ops, the peak
 memory.  Needs a GPU.
 """
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -33,6 +40,10 @@ from cell_image_analysis_tpu_torch.ops.vit_attention import (  # noqa: E402
     vit_attention,
     vit_attention_plain,
 )
+from cell_image_analysis_tpu_torch.ops.vit_linear import vit_linear  # noqa: E402
+
+LINEARS = {"qkv": (1024, 3072), "proj": (1024, 1024), "lin1": (1024, 4096),
+           "lin2": (4096, 1024)}                       # (K, N)
 
 
 def event_ms(fn, reps: int) -> list:
@@ -82,6 +93,26 @@ def main(argv=None):
     nbytes = 4.0 * args.tiles * 16 * 1024 * (4 * 64 + 64)
     res["attention_bound_ms"] = 1e3 * max(flops / 495e12, nbytes / 3.35e12)
     del q, k, v, rel_h, rel_w
+
+    # one block's four linears at the batch's rows
+    M = args.tiles * 1024
+    for name, (K, N) in LINEARS.items():
+        x = torch.randn(M, K, generator=g, device=dev)
+        w = torch.randn(N, K, generator=g, device=dev) * 0.02
+        b = torch.randn(N, generator=g, device=dev) * 0.1
+        with torch.inference_mode():
+            ref = torch.nn.functional.linear(x.double(), w.double(), b.double())
+            top = ref.abs().max()
+            row = {"kernel_err": float((vit_linear(x, w, b).double() - ref).abs().max() / top),
+                   "cublas_err": float((torch.nn.functional.linear(x, w, b).double() - ref)
+                                       .abs().max() / top)}
+            del ref
+            row["kernel_ms"] = statistics.median(event_ms(lambda: vit_linear(x, w, b), args.reps))
+            row["cublas_ms"] = statistics.median(
+                event_ms(lambda: torch.nn.functional.linear(x, w, b), args.reps))
+        row["bound_ms"] = 3 * 2.0 * M * N * K / 495e12 * 1e3
+        res[f"linear_{name}"] = row
+        del x, w, b
 
     # the whole network
     if args.weights:

@@ -671,3 +671,96 @@ def vit_attention_kernel_emulation(q, k, vt, rel_h, rel_w, scale: float) -> np.n
                             out[bh, row0 + 8 * r, 32 * h + 8 * n + 2 * t + j] = (
                                 o[:, h, 4 * n + 2 * r + j] / lq[:, r])
     return out
+
+
+def _rz_f32(v: np.ndarray) -> np.ndarray:
+    """float64 -> float32 rounded toward zero: the tensor cores' float32
+    accumulation, which drops the low bits of every sum."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _sw128(r, k):
+    """Float index of element (r, k) of a 32-wide K-major tile under the
+    128-byte swizzle (TMA's placement): byte 128 r + 16 ((k / 4) ^ (r % 8))
+    + 4 (k % 4)."""
+    return 32 * r + 4 * ((k >> 2) ^ (r & 7)) + (k & 3)
+
+
+def vit_linear_kernel_emulation(x, w, b, promote: bool = True) -> np.ndarray:
+    """`csrc/vit_linear.cu` on the CPU, tile by tile and thread by thread,
+    with the kernel's index arithmetic: TMA's 128-byte swizzled placement of
+    the x and W stages, the splitter warps' in-place TF32 split of W, each
+    consumer lane's ldmatrix.x4 address and the registers it returns (the
+    TF32 A fragment, split in registers), the B operand read through the
+    swizzled K-major descriptor advanced 32 bytes a k step, the product order
+    (a stage's 8 small products lo*hi, hi*lo, then its 4 hi*hi), the accumulators' rows and columns and
+    the bias at the store.  The tensor cores' sums are modelled as exact sums
+    of the 8 products and the accumulator, rounded toward zero to float32;
+    a stage's 12 products start from zero and are added to the tile's sum in
+    float32 (`promote=False`: one chain over the whole of K, as a kernel
+    without the promotion would run).  x (M, K), w (N, K), b (N) float32
+    numpy, M, N multiples of 128, K of 32 -> (M, N) float32."""
+    M, K = x.shape
+    N = w.shape[0]
+    y = np.zeros((M, N), np.float32)
+    lane = np.arange(32)
+    th = np.arange(128)                                   # a consumer warpgroup's threads
+    warp, g, t = th >> 5, (th & 31) >> 2, th & 3
+    e = np.arange(64)
+    acc_rows = (16 * warp + g)[:, None] + 8 * ((e & 3) >> 1)[None, :]     # (128, 64)
+    acc_cols = (8 * (e >> 2) + (e & 1))[None, :] + 2 * t[:, None]
+    a_rows = (16 * warp + g)[:, None] + 8 * (np.arange(4) & 1)[None, :]   # (128, 4)
+    a_cols = t[:, None] + 4 * (np.arange(4) >> 1)[None, :]
+    place = _sw128(np.arange(128)[:, None], np.arange(32)[None, :])      # (128, 32)
+    # ldmatrix.x4: lane L gives the byte address of row L % 8 of matrix L / 8; a
+    # lane receives word lane % 4 of row lane / 4 of each matrix i
+    ld_src = np.zeros((2, 4, 128, 4), np.int64)          # [cwg][ks][thread][register]
+    for cwg in range(2):
+        for ks in range(4):
+            for wp in range(4):
+                lrow = 64 * cwg + 16 * wp + (lane & 7) + 8 * ((lane >> 3) & 1)
+                addr = lrow * 128 + (((2 * ks + (lane >> 4)) ^ (lane & 7)) << 4)
+                for i in range(4):
+                    ld_src[cwg, ks, 32 * wp + lane, i] = addr[8 * i + (lane >> 2)] // 4 + (lane & 3)
+    # the B descriptor of k step ks: element (k, n) at byte 1024 (n / 8) + 128 (n % 8) + 32 ks
+    # + 4 k, before the swizzle XORs bits 4-6 with bits 7-9
+    nn, kl = np.arange(128)[None, :], np.arange(8)[:, None]
+    b_src = []
+    for ks in range(4):
+        una = (nn >> 3) * 1024 + (nn & 7) * 128 + 32 * ks + 4 * kl
+        b_src.append((una ^ (((una >> 7) & 7) << 4)) >> 2)                 # (8, 128)
+    for m0 in range(0, M, 128):
+        for n0 in range(0, N, 128):
+            sums = np.zeros((2, 128, 64), np.float32)
+            acc = np.zeros((2, 128, 64), np.float32)
+            for kb in range(K // 32):
+                xs = np.zeros(4096, np.float32)
+                ws = np.zeros(4096, np.float32)
+                xs[place] = x[m0:m0 + 128, 32 * kb:32 * kb + 32]
+                ws[place] = w[n0:n0 + 128, 32 * kb:32 * kb + 32]
+                whi = _tf32_np(ws)                        # the splitters, in place
+                wlo = _tf32_np(ws - whi)
+                for cwg in range(2):
+                    ahi, alo = [], []
+                    for ks in range(4):
+                        regs = xs[ld_src[cwg, ks]]
+                        ahi.append(_tf32_np(regs))
+                        alo.append(_tf32_np(regs - ahi[ks]))
+                    # the small products of the stage's 4 k steps, then its hi * hi
+                    order = [(ks, a, bsm) for ks in range(4) for a, bsm in ((alo, whi), (ahi, wlo))]
+                    order += [(ks, ahi, whi) for ks in range(4)]
+                    for p, (ks, a_regs, bsm) in enumerate(order):
+                        A = np.zeros((64, 8))
+                        A[a_rows, a_cols] = a_regs[ks]
+                        C = A @ bsm[b_src[ks]].astype(np.float64)          # (64, 128), exact
+                        first = p == 0 and (promote or kb == 0)
+                        prev = 0.0 if first else acc[cwg].astype(np.float64)
+                        acc[cwg] = _rz_f32(prev + C[acc_rows, acc_cols])
+                if promote:
+                    sums += acc
+            total = sums if promote else acc
+            for cwg in range(2):
+                y[m0 + 64 * cwg + acc_rows, n0 + acc_cols] = total[cwg] + b[n0 + acc_cols]
+    return y
